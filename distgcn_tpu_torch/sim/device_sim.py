@@ -1,0 +1,225 @@
+"""Device-resident closed-loop wireless scheduler.
+
+Port of `distgcn_tpu/sim/device_sim.py` (`make_slot_step`,
+`make_closed_loop`). The conflict graphs, GCN parameters, supports, queues
+and the traffic RNG all live on the device; the T-slot episode is a Python
+loop that never synchronises with the host (the LGS kernel launches
+without a sync and per-slot metrics stay on the device until the end).
+
+Semantics per slot (the reference's wireless_dqn_test.py):
+- arrivals ~ Poisson(0.5*(rate_lo+rate_hi)*load) per link;
+- link rates = truncated-Gaussian integers in [rate_lo, rate_hi];
+- utilities per `wt_sel` in {qr, q, qor, qrm, random};
+- schedule = GCN-reweighted LGS (DGCN-LGS) or plain LGS;
+- queue += arrivals; departures = min(queue, rate * scheduled);
+  queue -= departures.
+
+The episode draws from a `torch.Generator` on the device; its streams
+cannot match `jax.random`'s, so episodes agree with the JAX package in
+distribution, not draw for draw. `make_slot_step` takes arrivals and rates
+as inputs and is exact against the JAX step. The JAX module's
+`_features_for` repeats `agents.build_features`; here the slot calls that
+function itself.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from distgcn_tpu_torch.agents import build_features
+from distgcn_tpu_torch.core import prep
+from distgcn_tpu_torch.models.gcn import cast_model
+from distgcn_tpu_torch.ops.lgs import batched_lgs
+from distgcn_tpu_torch.pipeline import gcn_weights, selected_utility
+from distgcn_tpu_torch.utils.config import Config
+
+
+def _poisson_cdf(lam: float, tail: float = 1e-9) -> np.ndarray:
+    """Poisson(lam) CDF table up to the (1-tail) quantile (float64 host).
+
+    Raises ValueError once exp(-lam) leaves the normal float64 range
+    (lam > ~708): the recurrence starts from it, and the table would
+    silently degenerate there.
+    """
+    if lam <= 0:
+        return np.ones(1)
+    p0 = np.exp(-lam)
+    if p0 < np.finfo(np.float64).tiny:
+        raise ValueError(
+            f"Poisson arrival rate {lam} is too large for the inverse-CDF "
+            "table: exp(-lam) underflows float64 above lam ~708")
+    pmf = [p0]
+    while sum(pmf) < 1.0 - tail and len(pmf) < int(8 * lam + 64):
+        pmf.append(pmf[-1] * lam / len(pmf))
+    return np.cumsum(pmf)
+
+
+def make_poisson_arrivals(lam: float):
+    """Exact static-rate Poisson sampler: inverse CDF from ONE uniform.
+
+    Returns draw(generator, shape, dtype) -> counts on the generator's
+    device: ``#{k : u > cdf[k]}`` over a float32 cdf, i.e. the number of
+    entries strictly less than u (`torch.searchsorted` on the left side).
+    """
+    cdf32 = torch.from_numpy(_poisson_cdf(lam).astype(np.float32))
+    per_device = {}
+
+    def draw(generator: torch.Generator, shape, dtype=torch.float32):
+        dev = generator.device
+        cdf = per_device.get(dev)
+        if cdf is None:
+            cdf = per_device[dev] = cdf32.to(dev)
+        u = torch.rand(shape, generator=generator, device=dev)
+        return torch.searchsorted(cdf, u).to(dtype)
+
+    return draw
+
+
+def slot_utilities(queue: torch.Tensor, rates: torch.Tensor, wt_sel: str,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Per-slot utilities [B, N] (wireless_dqn_test.py:219-230)."""
+    if wt_sel == "qr":
+        return queue * rates
+    if wt_sel == "q":
+        return queue
+    if wt_sel == "qor":
+        return torch.where(rates > 0, queue / torch.clamp(rates, min=1e-9),
+                           torch.zeros_like(queue))
+    if wt_sel == "qrm":
+        return torch.minimum(queue, rates)
+    if wt_sel == "random":
+        if generator is None:
+            raise ValueError("wt_sel='random' needs a torch.Generator")
+        return torch.rand(queue.shape, generator=generator,
+                          device=queue.device)
+    raise ValueError(f"unsupported wt_sel {wt_sel}")
+
+
+def _gcn_scorer(model, flags: Config, feature_mode: str) -> Callable:
+    """scores(supports, wts, mask) -> LGS weights, running the GCN on
+    features in the supports' dtype."""
+    def scores(supports, wts, mask):
+        feats = build_features(wts, mask, flags.feature_size, flags.predict,
+                               feature_mode)
+        return gcn_weights(model, feats.to(supports.dtype), supports, wts,
+                           mask, flags.predict)
+    return scores
+
+
+def _slot(scores: Optional[Callable], wt_sel: str, supports, adjb, mask,
+          queue, arrivals, rates):
+    queue = queue + arrivals
+    wts = slot_utilities(queue, rates, wt_sel) * mask
+    gcn_wts = wts if scores is None else scores(supports, wts, mask)
+    sel = batched_lgs(adjb, gcn_wts, mask)[0]
+    on = (sel == 1).to(queue.dtype)
+    departures = torch.minimum(queue, rates * on)
+    queue = queue - departures
+    return queue, sel, selected_utility(sel, wts), wts
+
+
+def make_slot_step(model, flags: Config, feature_mode: str = "gdpg",
+                   wt_sel: str = "qr", use_gcn: bool = True):
+    """Deterministic one-slot step for parity tests.
+
+    Returns step(supports, adjb, mask, queue, arrivals, rates) ->
+    (queue', sel [B,N] int8, util [B], wts [B,N] scheduling-time
+    utilities). The model's params must be in the supports' dtype.
+    """
+    scores = _gcn_scorer(model, flags, feature_mode) if use_gcn else None
+
+    @torch.no_grad()
+    def step(supports, adjb, mask, queue, arrivals, rates):
+        return _slot(scores, wt_sel, supports, adjb, mask, queue, arrivals,
+                     rates)
+
+    return step
+
+
+def _index(dev: torch.device) -> torch.device:
+    """`dev` with its index (a CUDA generator reports plain 'cuda')."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_closed_loop(model, flags: Config, timeslots: int,
+                     load: float = 0.9, rate_lo: float = 0.0,
+                     rate_hi: float = 100.0, wt_sel: str = "qr",
+                     feature_mode: str = "gdpg", use_gcn: bool = True,
+                     with_baseline: bool = False):
+    """Closed-loop T-slot scheduling episode.
+
+    Returns run(adj, mask, queue0, generator) ->
+      (queueT [B,N],
+       {"avg_queue_len": [B], "avg_utility": [B], "sched_rate": [B]}
+       plus "avg_utility_ratio": [B] if with_baseline)
+
+    adj is the dense [B,N,N] 0/1 conflict adjacency (static over the
+    episode); supports are built once per episode and stay resident. The
+    generator lies on the device of the other inputs. In bf16 episodes
+    (``flags.compute_dtype``) the supports and params are cast once per
+    episode and the features follow the supports' dtype.
+
+    With ``feature_mode='gdpg'`` and ``predict='mwis'`` the GCN features
+    do not depend on the weights, so the scores are computed once per
+    episode (XLA hoists the same computation out of the JAX scan); every
+    other mode runs the GCN every slot.
+    """
+    draw_arrivals = make_poisson_arrivals(0.5 * (rate_lo + rate_hi) * load)
+    mean_r = 0.5 * (rate_lo + rate_hi)
+    std_r = 0.25 * (rate_hi - rate_lo)
+    hoist = use_gcn and flags.predict == "mwis" and feature_mode == "gdpg"
+    dtype = (torch.bfloat16 if flags.compute_dtype == "bfloat16"
+             else torch.float32)
+
+    @torch.no_grad()
+    def run(adj, mask, queue0, generator: torch.Generator):
+        dev = queue0.device
+        if _index(generator.device) != _index(dev):
+            raise ValueError(f"generator on {generator.device}, inputs on "
+                             f"{dev}")
+        m = mask.to(queue0.dtype)
+        adjb = adj > 0
+        supports, scores = None, None
+        if use_gcn:
+            supports = prep.masked_simple_polynomials_dense(
+                adj, mask, flags.max_degree).to(dtype)
+            scores = _gcn_scorer(cast_model(model, dtype), flags,
+                                 feature_mode)
+            if hoist:
+                act = scores(supports, torch.ones_like(queue0), mask)
+                scores = lambda supports, wts, mask: act * wts  # noqa: E731
+        n_stats = 4 if with_baseline else 3
+        stats = torch.empty((timeslots, n_stats, queue0.shape[0]),
+                            dtype=torch.float32, device=dev)
+        queue = queue0
+        for t in range(timeslots):
+            arrivals = draw_arrivals(generator, queue.shape, queue.dtype) * m
+            # truncated-Gaussian integer rates: trunc toward zero, then clamp
+            rates = torch.randn(queue.shape, generator=generator,
+                                device=dev) * std_r + mean_r
+            rates = torch.clamp(torch.trunc(rates), rate_lo, rate_hi) * m
+            queue, sel, util, wts = _slot(scores, wt_sel, supports, adjb,
+                                          mask, queue, arrivals, rates)
+            stats[t, 0] = (queue * m).sum(dim=-1)
+            stats[t, 1] = util
+            stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
+            if with_baseline:
+                stats[t, 3] = batched_lgs(adjb, wts, mask)[1]
+        nreal = torch.clamp(m.sum(dim=-1), min=1.0)
+        metrics = {
+            "avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
+            "avg_utility": stats[:, 1].mean(dim=0),
+            "sched_rate": stats[:, 2].mean(dim=0) / nreal,
+        }
+        if with_baseline:
+            metrics["avg_utility_ratio"] = (
+                stats[:, 1] / torch.clamp(stats[:, 3], min=1e-9)).mean(dim=0)
+        return queue, metrics
+
+    return run

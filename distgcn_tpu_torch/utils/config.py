@@ -1,0 +1,99 @@
+"""Configuration system (port of `distgcn_tpu/utils/config.py`).
+
+A plain dataclass whose field names and defaults mirror the reference's TF1
+flags, so checkpoint-directory naming and script presets translate 1:1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass
+class Config:
+    # --- model / training hyperparameters ---
+    model: str = "gcn_cheby"
+    learning_rate: float = 0.001
+    learning_decay: float = 1.0
+    epochs: int = 201
+    feature_size: int = 32
+    hidden1: int = 32
+    diver_num: int = 32
+    dropout: float = 0.0
+    weight_decay: float = 5e-4
+    early_stopping: int = 1000
+    max_degree: int = 1          # Chebyshev/simple polynomial order K
+    num_layer: int = 20
+
+    # --- search / eval ---
+    backoff_prob: float = 0.3
+    diver_out: int = 32
+    timeout: int = 300
+    datapath: str = "./data/Random_Graph_Test"
+    snr_db: float = 10.0
+    training_set: str = "IS4SAT"
+    greedy: int = 0              # 0 normal, 1 greedy, 2 noisy greedy
+    skip: bool = False
+    wts_init: str = "random"     # 'random' (glorot) or 'zeros'
+    snapshot: str = ""
+    predict: str = "mwis"        # 'mwis': wts * gcn out; else gcn out directly
+
+    # --- RL exploration ---
+    epsilon: float = 1.0
+    epsilon_min: float = 0.001
+    epsilon_decay: float = 0.985
+    gamma: float = 1.0
+
+    # --- driver extras ---
+    test_datapath: str = "./data/ER_Graph_Uniform_NP20_test"
+    output: str = "wireless"
+    wt_sel: str = "qr"           # qr | q | qor | qrm | random
+    load_min: float = 0.1
+    load_max: float = 1.0
+    load_step: float = 0.1
+    instances: int = 10
+    num_channels: int = 1
+    opt: int = 0
+    solver: str = "optimal"
+
+    # --- batched-device additions ---
+    pad_to: int = 128            # node-count padding bucket
+    batch_size: int = 64         # graphs per device batch
+    # 'float32' (parity path) or 'bfloat16' (GCN scores in bf16; LGS always
+    # compares f32 weights)
+    compute_dtype: str = "float32"
+    dtype: str = "float32"
+    seed: int = 42
+
+    @property
+    def num_supports(self) -> int:
+        # K-order polynomial -> K+1 support matrices
+        return 1 + self.max_degree
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_args(cls, argv: Optional[list] = None, **overrides) -> "Config":
+        """Build a Config from command-line ``--flag=value`` arguments."""
+        parser = argparse.ArgumentParser()
+        base = cls(**overrides)
+        for f in dataclasses.fields(cls):
+            default = getattr(base, f.name)
+            if f.type in ("bool", bool):
+                parser.add_argument(f"--{f.name}", type=_str2bool,
+                                    default=default)
+            else:
+                parser.add_argument(f"--{f.name}", type=type(default),
+                                    default=default)
+        ns, _ = parser.parse_known_args(argv)
+        return cls(**vars(ns))
+
+
+def _str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("1", "true", "yes", "y", "t")

@@ -1,0 +1,70 @@
+"""The port stands alone: it imports no JAX and nothing of `distgcn_tpu`,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from distgcn_tpu_torch.core.graph import GraphBatch
+from distgcn_tpu_torch.models.gcn import make_model_from_config
+from distgcn_tpu_torch.pipeline import BatchedEvaluator
+from distgcn_tpu_torch.utils.config import Config
+from distgcn_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import distgcn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(distgcn_tpu_torch.__path__,
+                                               "distgcn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+banned = {"jax", "jaxlib", "flax", "optax", "distgcn_tpu"}
+print(json.dumps({"modules": names,
+                  "banned": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in banned)}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_or_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    # every module of the slice was imported
+    for mod in ("agents", "pipeline", "core.graph", "core.prep",
+                "models.gcn", "models.layers", "ops.lgs", "ops.lgs_cuda",
+                "ops._build", "sim.device_sim", "utils.config",
+                "utils.device", "utils.serialization"):
+        assert f"distgcn_tpu_torch.{mod}" in result["modules"]
+    assert result["banned"] == []
+
+
+def test_default_device_entry_points_raise_without_a_card(rng):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphBatch.from_scipy([np.zeros((3, 3))], [np.ones(3)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_model_from_config(Config(num_layer=2))
+    agent = type("Agent", (), {"model": None, "flags": Config(),
+                               "feature_mode": "gdpg"})()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedEvaluator(agent)
+
+
+def test_cpu_device_sets_full_f32_matmuls():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"

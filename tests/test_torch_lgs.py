@@ -1,0 +1,172 @@
+"""Port parity: LGS ranks and solves against JAX XLA, JAX Pallas
+(interpret mode) and the host `local_greedy_search`.
+
+Selections and round counts are integers and must be bit-equal; the
+utility is a float sum taken in another order (rtol 1e-6). The CUDA
+kernel itself runs only on the card (`-m cuda`).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_graph
+from distgcn_tpu.core.graph import GraphBatch as JGraphBatch
+from distgcn_tpu.ops.lgs import batched_lgs as jax_lgs
+from distgcn_tpu.ops.lgs import lgs_ranks as jax_ranks
+from distgcn_tpu.ops.lgs_pallas import batched_lgs_pallas
+from distgcn_tpu.solvers.greedy import local_greedy_search
+from distgcn_tpu_torch.core.graph import GraphBatch
+from distgcn_tpu_torch.ops import lgs
+from distgcn_tpu_torch.ops.lgs_cuda import MAX_N, batched_lgs_kernel
+from distgcn_tpu_torch.models.gcn import make_model_from_config
+from distgcn_tpu_torch.sim import device_sim
+from distgcn_tpu_torch.utils.config import Config
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _weights(rng, n, case):
+    if case == "ties":
+        return np.ones(n)                 # tie-break by smaller node id
+    if case == "negative":
+        return rng.random(n) - 0.6
+    if case == "coarse":
+        return np.round(rng.random(n) * 4) / 4   # many partial ties
+    return rng.random(n)
+
+
+def _case(rng, case, b=4, pad=128):
+    adjs = [random_graph(rng, n=int(rng.integers(20, 60)), p=0.12)
+            for _ in range(b)]
+    wtss = [_weights(rng, a.shape[0], case) for a in adjs]
+    jb = JGraphBatch.from_scipy(adjs, wtss, pad_to=pad)
+    tb = GraphBatch.from_scipy(adjs, wtss, pad_to=pad, device="cpu")
+    return jb, tb, adjs, wtss
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "negative", "coarse"])
+def test_lgs_ranks_match_jax(rng, case):
+    w = np.stack([_weights(rng, 37, case) for _ in range(3)]).astype(
+        np.float32)
+    w[0, :5] = 0.0
+    w[0, 5:8] = -0.0                      # JAX sorts -0.0 == 0.0
+    got = lgs.lgs_ranks(torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax_ranks(jnp.asarray(w))))
+    assert sorted(got[1].tolist()) == list(range(1, 38))
+
+
+@pytest.mark.parametrize("case,max_rounds", [
+    ("random", None), ("ties", None), ("negative", None), ("coarse", None),
+    ("random", 1), ("ties", 2)])
+def test_batched_lgs_matches_jax_pallas_and_host(rng, case, max_rounds):
+    jb, tb, adjs, wtss = _case(rng, case)
+    sel, util, rounds = lgs.batched_lgs(tb.adj, tb.wts, tb.mask, max_rounds)
+    assert sel.dtype == torch.int8 and rounds.dtype == torch.int32
+    assert rounds.dim() == 0
+    jsel, jutil, jrounds = jax_lgs(jb.adj, jb.wts, jb.mask, max_rounds)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    assert int(rounds) == int(jrounds)
+    np.testing.assert_allclose(util.numpy(), np.asarray(jutil), rtol=1e-6)
+    psel, putil, prounds = batched_lgs_pallas(
+        (jb.adj > 0).astype(jnp.int8), jb.wts, jb.mask, max_rounds,
+        interpret=True)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(psel))
+    assert int(rounds) == int(jnp.max(prounds))
+    if max_rounds is None:
+        sel = sel.numpy()
+        assert not np.any(sel == -1)
+        assert not np.any(sel[~tb.mask.numpy()] != 0)   # padding -> 0
+        for i, (a, w) in enumerate(zip(adjs, wtss)):
+            mwis, total = local_greedy_search(a, w)
+            assert set(np.flatnonzero(sel[i, :a.shape[0]] == 1)) == mwis
+            assert float(util[i]) == pytest.approx(total, rel=1e-6)
+
+
+def test_batched_greedy_is_lgs():
+    assert lgs.batched_greedy is lgs.batched_lgs
+
+
+def test_plain_lgs_accepts_float_adjacency(rng):
+    _, tb, _, _ = _case(rng, "random", b=2, pad=64)
+    a = lgs.batched_lgs(tb.adj, tb.wts, tb.mask)
+    b = lgs.batched_lgs(tb.adj.float(), tb.wts, tb.mask)
+    assert torch.equal(a[0], b[0]) and int(a[2]) == int(b[2])
+
+
+def test_kernel_wrapper_rejects_bad_inputs(rng):
+    _, tb, _, _ = _case(rng, "random", b=2, pad=64)
+    # CPU tensors: the wrapper never falls back to the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_lgs_kernel(tb.adj, tb.wts, tb.mask)
+    with pytest.raises(ValueError, match="shape"):
+        batched_lgs_kernel(tb.adj[:, :32], tb.wts, tb.mask)
+    with pytest.raises(ValueError, match="int8 or bool"):
+        batched_lgs_kernel(tb.adj.float(), tb.wts, tb.mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        batched_lgs_kernel(tb.adj.transpose(1, 2), tb.wts, tb.mask)
+    n = MAX_N + 1
+    with pytest.raises(ValueError, match="range"):
+        batched_lgs_kernel(torch.zeros((1, n, n), dtype=torch.int8),
+                           torch.ones((1, n)), torch.ones((1, n), dtype=bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,case,max_rounds", [
+    (256, "random", None), (256, "ties", None), (256, "negative", None),
+    (256, "random", 1), (100, "random", None), (24, "ties", None),
+    (1, "random", None), (1024, "coarse", None)])
+def test_kernel_matches_plain_on_card(cuda, n, case, max_rounds):
+    rng = np.random.default_rng(n)
+    b = 32
+    a = rng.random((b, n, n)) < min(1.0, 20.0 / n)
+    a = np.triu(a, 1)
+    a = a | a.transpose(0, 2, 1)
+    m = np.arange(n)[None, :] < rng.integers(max(1, n // 2), n + 1, b)[:, None]
+    a = a & m[:, :, None] & m[:, None, :]
+    w = np.stack([_weights(rng, n, case) for _ in range(b)]) * m
+    adj = torch.from_numpy(a.astype(np.int8)).to(cuda)
+    wts = torch.from_numpy(w.astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(m).to(cuda)
+    sel, util, rounds = batched_lgs_kernel(adj, wts, mask, max_rounds)
+    torch.cuda.synchronize()
+    psel, putil, prounds = lgs.batched_lgs_plain(adj, wts, mask, max_rounds)
+    assert torch.equal(sel, psel)
+    assert int(rounds.max()) == int(prounds)
+    torch.testing.assert_close(util, putil, rtol=1e-6, atol=1e-6)
+    # batched_lgs on CUDA tensors goes through the kernel
+    before = batched_lgs_kernel.launches
+    dsel, _, drounds = lgs.batched_lgs(adj.bool(), wts, mask, max_rounds)
+    assert batched_lgs_kernel.launches == before + 1
+    assert torch.equal(dsel, psel) and int(drounds) == int(prounds)
+
+
+@pytest.mark.cuda
+def test_closed_loop_on_card_launches_lgs_kernel(cuda):
+    """The closed loop goes through the kernel: one launch per slot plus
+    one for the baseline."""
+    rng = np.random.default_rng(0)
+    adjs = [random_graph(rng, n=100, p=0.2) for _ in range(8)]
+    tb = GraphBatch.from_scipy(adjs, [np.ones(100)] * 8, pad_to=128,
+                               device=cuda)
+    cfg = Config(feature_size=1, hidden1=8, num_layer=2, diver_num=1,
+                 max_degree=1, pad_to=128)
+    tmodel = make_model_from_config(cfg, "gcn_dqn", device=cuda)
+    run = device_sim.make_closed_loop(tmodel, cfg, timeslots=20,
+                                      with_baseline=True)
+    before = batched_lgs_kernel.launches
+    qT, metrics = run(tb.adj, tb.mask, torch.zeros((8, 128), device=cuda),
+                      torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert batched_lgs_kernel.launches - before == 40
+    assert bool((qT >= 0).all()) and bool(torch.isfinite(qT).all())
+    assert bool((qT[~tb.mask] == 0).all())
+    assert bool((metrics["avg_utility_ratio"] > 0.8).all())
