@@ -26,7 +26,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    episodes (host clock after `torch.cuda.synchronize()`);
 5. kernel timings at B=128, N=256 with CUDA events around CUDA-graph
    replays (L2 flushed between launches), beside the plain version's and
-   the memory bound.
+   the memory bound;
+6. the large-graph path at `bench.py`'s size: the geometric conflict
+   graph with N=65,536 and average degree 48 in serpentine order,
+   `build_large_graph(block_size=512)` (bitmap structure blocks of
+   256x256). Each large-graph kernel against its plain version on the
+   card: the neighbour-max on bitmap and int8 streams (bit-equal,
+   sentinel rows included), the SpMM on the bitmap stream and on f32 value
+   blocks of a weighted copy (rtol 2e-5, atol 1e-5, through
+   `bsr_spmm_rows` and `bsr_spmm`), and the fused layer of a 20-layer
+   128-wide ChebGCN (K=1, glorot from a seeded generator), one hidden
+   layer and the head (within 2^-6 of the largest |value|, mean relative
+   difference < 1e-3);
+7. the large-graph main path: `make_large_solve(predict="dqn")` through
+   the fused route and the exact route (SpMM kernel), both schedules
+   independent and maximal with utilities within 1%; `bsr_lgs` through
+   the neighbour-max kernel equal to the plain `ell_lgs`; 20 fused-layer
+   launches per fused solve and 2 neighbour-max launches per LGS round;
+   the per-solve time as the marginal of two repeat counts, edges x
+   layers / s, and the time of the solve with the GCN hoisted;
+8. the large closed loop with the ERGDPG2 checkpoint (gdpg, GCN hoisted,
+   load 0.9): queues finite, >= 0 and 0 on padding, the neighbour-max
+   launched every slot;
+9. the large-graph kernels timed at the main path's shapes (CUDA-graph
+   replays, L2 flushed) beside the plain version, the bound and a PyTorch
+   library call computing the same function where there is one.
+
+The launch counts of the JSON line come from the main paths: phase 4 for
+the LGS kernel, phases 7-8 for the large-graph kernels (counts set to 0
+just before, read just after).
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the one before it a JSON object with one entry per kernel.
@@ -35,10 +63,13 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import scipy.sparse as sp
@@ -46,11 +77,27 @@ import torch
 
 from distgcn_tpu_torch.agents import build_state_arrays
 from distgcn_tpu_torch.core.graph import GraphBatch
-from distgcn_tpu_torch.models.gcn import (make_model_from_config,
+from distgcn_tpu_torch.large import (bsr_lgs, build_large_graph,
+                                     geometric_conflict_graph,
+                                     large_gcn_forward,
+                                     make_large_closed_loop,
+                                     make_large_solve, params_to_list)
+from distgcn_tpu_torch.models.gcn import (ChebGCN, make_model_from_config,
                                           params_from_jax)
 from distgcn_tpu_torch.ops import _build
-from distgcn_tpu_torch.ops.lgs import batched_lgs_plain, lgs_ranks
+from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
+                                              fused_cheb_layer_plain,
+                                              pad_layer_params)
+from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
+from distgcn_tpu_torch.ops.lgs import (batched_lgs_plain, ell_lgs,
+                                       lgs_ranks)
 from distgcn_tpu_torch.ops.lgs_cuda import batched_lgs_kernel, launch
+from distgcn_tpu_torch.ops.nbr_max_cuda import bsr_nbr_max_kernel
+from distgcn_tpu_torch.ops.spmm import (NEG_HUGE, BsrMatrix,
+                                        bsr_nbr_max_plain, bsr_neighbor_max,
+                                        bsr_row_ptr, bsr_spmm, bsr_spmm_plain,
+                                        bsr_spmm_rows)
+from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
 from distgcn_tpu_torch.pipeline import make_solve_pipeline
 from distgcn_tpu_torch.sim.device_sim import make_closed_loop
 from distgcn_tpu_torch.utils.config import Config
@@ -62,6 +109,11 @@ CKPT = ("model/result_ERGDPG2_deep_ld1_c32_l20_cheb1_diver1_mwis_dqn/"
         "params.npz")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
+# the large-graph cell of bench.py:211-333
+LARGE_N, LARGE_DEG, LARGE_LAYERS, LARGE_WIDTH = 65536, 48.0, 20, 128
+LARGE_SLOTS = 30
+ISOLATED = 1000                # nodes cut loose for the sentinel-row check
 L2_FLUSH_BYTES = 64 << 20      # > the 50 MB L2
 
 
@@ -92,9 +144,10 @@ def independent_and_maximal(sel, adj, mask) -> bool:
 
 
 def event_ms(fn, iters, flush=None) -> float:
-    """Mean device time of fn() over `iters` launches, CUDA events around
-    each launch; `flush` (a large buffer) is rewritten between launches so
-    every launch finds a cold L2."""
+    """Mean device time of fn() over `iters` launches after one warm-up
+    call, CUDA events around each launch; `flush` (a large buffer) is
+    rewritten between launches so every launch finds a cold L2."""
+    fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
@@ -293,6 +346,361 @@ def phase_timing(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+# ---------------------------------------------------------------------------
+# the large-graph path
+# ---------------------------------------------------------------------------
+
+def large_model_params(dev) -> list:
+    """A 20-layer 128-wide ChebGCN (K=1, gcn_dqn: no bias, linear head),
+    glorot-uniform from a seeded generator, as a per-layer list."""
+    model = ChebGCN(in_dim=1, num_layer=LARGE_LAYERS, hidden_dim=LARGE_WIDTH,
+                    out_dim=1, num_supports=2,
+                    generator=torch.Generator().manual_seed(0))
+    tree = {}
+    for name, value in model.state_dict().items():
+        layer, leaf = name.split(".")
+        tree.setdefault(layer, {})[leaf] = value
+    return params_to_list(tree, device=dev)
+
+
+def schedule_ok(sel, adj, n) -> bool:
+    """Independent and maximal on the host's csr adjacency; nothing left
+    undecided."""
+    s = sel[:n].cpu().numpy()
+    picked = np.flatnonzero(s == 1)
+    independent = adj[picked][:, picked].nnz == 0
+    covered = np.zeros(n, bool)
+    covered[picked] = True
+    covered[np.unique(adj[picked].indices)] = True
+    return bool(independent and covered.all() and not (s == -1).any())
+
+
+@contextlib.contextmanager
+def exact_route():
+    """DISTGCN_LARGE_EXACT=1: the large forward takes the f32 SpMM route."""
+    old = os.environ.get("DISTGCN_LARGE_EXACT")
+    os.environ["DISTGCN_LARGE_EXACT"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DISTGCN_LARGE_EXACT"]
+        else:
+            os.environ["DISTGCN_LARGE_EXACT"] = old
+
+
+def structure(adj, n_pad):
+    s = sp.csr_matrix(adj, dtype=np.float32, copy=True)
+    s.data[:] = 1.0
+    s.resize(n_pad, n_pad)
+    s.sort_indices()
+    return s
+
+
+def phase_large_setup(dev) -> SimpleNamespace:
+    t0 = time.perf_counter()
+    adj, wts, _ = geometric_conflict_graph(LARGE_N, avg_degree=LARGE_DEG,
+                                           seed=0, order="grid")
+    t1 = time.perf_counter()
+    g = build_large_graph(adj, block_size=512, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ind = g.ind_bsr
+    check(g.use_bsr and g.separable and g.bitmap and ind.block_size == 256,
+          "the large graph is not a separable bitmap stream at 256")
+    words = ind.blk_vals.numel() * 4
+    print(f"phase 6: graph N={g.n} (n_pad {g.n_pad}), {adj.nnz} directed "
+          f"edges, max degree {int(np.diff(adj.indptr).max())}, "
+          f"{ind.num_blocks} structure blocks of 256x256 "
+          f"({ind.num_blocks * 65536 / adj.nnz:.1f} cells per edge), "
+          f"{words} bytes of bitmap words; graph {t1 - t0:.3f} s, build "
+          f"{t2 - t1:.3f} s", flush=True)
+    w = torch.zeros(g.n_pad)
+    w[: g.n] = torch.from_numpy(wts)
+    return SimpleNamespace(adj=adj, g=g, w=w.to(dev),
+                           plist=large_model_params(dev))
+
+
+def rel_mean(got, want) -> float:
+    return float(((got - want).abs() / (want.abs() + 1e-2)).mean())
+
+
+def phase_large_kernels(dev, L) -> dict:
+    """Each large-graph kernel against its plain version at the main
+    path's shapes; returns the largest |kernel - plain| per kernel."""
+    g, ind = L.g, L.g.ind_bsr
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    # neighbour-max: the main bitmap stream, and bitmap and int8 streams of
+    # a copy whose first ISOLATED nodes have no edge (sentinel rows)
+    keep = sp.diags((np.arange(g.n) >= ISOLATED).astype(np.float32))
+    iso = structure(keep @ L.adj @ keep, g.n_pad)
+    iso.eliminate_zeros()
+    streams = [("bitmap", ind)]
+    for kind, dtype in (("bitmap, isolated", "bits"),
+                        ("int8, isolated", np.int8)):
+        streams.append((kind, BsrMatrix.from_scipy(iso, 256, dtype=dtype,
+                                                   device=dev)))
+    x = torch.randn(g.n_pad, generator=gen, device=dev)
+    worst = 0.0
+    for kind, b in streams:
+        rp = g.ind_row_ptr if b is ind else bsr_row_ptr(b)
+        got = bsr_neighbor_max(b, x, rp)
+        torch.cuda.synchronize()
+        want = bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows,
+                                 256, b.bitmap)
+        check(torch.equal(got, want), f"neighbour-max ({kind}) differs")
+        sentinel = int((want == NEG_HUGE).sum())
+        if "isolated" in kind:
+            check(sentinel >= ISOLATED, f"{kind}: {sentinel} sentinel rows")
+        worst = max(worst, float((got - want).abs().max()))
+        print(f"phase 6: bsr_nbr_max {kind}: {b.num_blocks} blocks, "
+              f"bit-equal to the plain version, {sentinel} sentinel rows",
+              flush=True)
+    errs["bsr_nbr_max"] = worst
+    # SpMM: the exact route's operand r * y at F=128 on the structure
+    # stream, and f32 value blocks (bs 512) of a weighted copy
+    y = torch.randn((g.n_pad, LARGE_WIDTH), generator=gen, device=dev) * g.r
+    rng = np.random.default_rng(12)
+    wadj = sp.triu(L.adj, 1).tocsr()
+    wadj.data = (rng.random(wadj.nnz) + 0.5).astype(np.float32)
+    gw = build_large_graph(wadj + wadj.T, block_size=512, device=dev)
+    check(not gw.separable and gw.bsr is not None
+          and gw.bsr.blk_vals.dtype == torch.float32, "weighted value blocks")
+    worst = 0.0
+    for kind, b, rp in (("bitmap", ind, g.ind_row_ptr),
+                        ("f32 values", gw.bsr, gw.row_ptr)):
+        want = bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, y, b.n_rows,
+                              b.block_size, b.bitmap)
+        for route, fn in (("bsr_spmm_rows", lambda: bsr_spmm_rows(b, y, rp)),
+                          ("bsr_spmm", lambda: bsr_spmm(b, y))):
+            got = fn()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
+                  f"SpMM {kind} via {route}: max abs diff {err}")
+            print(f"phase 6: bsr_spmm {kind} ({b.num_blocks} blocks of "
+                  f"{b.block_size}) via {route}: max abs diff {err:.3g} "
+                  f"(rtol 2e-5, atol 1e-5)", flush=True)
+    errs["bsr_spmm"] = worst
+    # fused layer: one hidden layer and the head on the same bf16 input
+    h = torch.randn((g.n_pad, LARGE_WIDTH), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    r = g.r.reshape(-1).contiguous()
+    worst = 0.0
+    for li, act, dt in ((1, 1, torch.bfloat16),
+                        (LARGE_LAYERS - 1, 0, torch.float32)):
+        p = pad_layer_params(L.plist[li], LARGE_WIDTH)
+        args = (ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
+                p["w01"], p["bias"], ind.n_rows, 256, act, dt, True)
+        got = fused_cheb_layer(*args).float()
+        torch.cuda.synchronize()
+        want = fused_cheb_layer_plain(*args).float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        rel = rel_mean(got, want)
+        check(err <= 2.0 ** -6 * scale and rel < 1e-3,
+              f"fused layer {li + 1}: max abs diff {err} (scale {scale}), "
+              f"mean rel {rel}")
+        worst = max(worst, err)
+        print(f"phase 6: fused layer gc{li + 1} ({dt}): max abs diff "
+              f"{err:.3g} <= 2^-6 x {scale:.4g}, mean rel diff {rel:.3g}",
+              flush=True)
+    errs["cheb_fused"] = worst
+    return errs
+
+
+def marginal_s(fn, k_lo=2, k_hi=6, tries=2) -> float:
+    """Seconds per call as the marginal between k_lo and k_hi calls
+    (host clock after torch.cuda.synchronize(), best of `tries`)."""
+    fn(0)
+    t = {}
+    for k in (k_lo, k_hi):
+        best = None
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(k):
+                fn(i)
+            torch.cuda.synchronize()
+            el = time.perf_counter() - t0
+            best = el if best is None else min(best, el)
+        t[k] = best
+    return (t[k_hi] - t[k_lo]) / (k_hi - k_lo)
+
+
+def phase_large_solve(dev, L) -> None:
+    g, w, plist = L.g, L.w, L.plist
+    m = g.mask.to(torch.float32)
+    solve = make_large_solve(g, predict="dqn")
+    f0, n0 = fused_cheb_layer_kernel.launches, bsr_nbr_max_kernel.launches
+    sel_f, util_f, _ = solve(plist, w)
+    torch.cuda.synchronize()
+    fused_launches = fused_cheb_layer_kernel.launches - f0
+    nbr_launches = bsr_nbr_max_kernel.launches - n0
+    check(fused_launches == LARGE_LAYERS,
+          f"fused solve launched the fused layer {fused_launches} times")
+    s0, f0 = bsr_spmm_kernel.launches, fused_cheb_layer_kernel.launches
+    with exact_route():
+        sel_x, util_x, _ = solve(plist, w)
+        torch.cuda.synchronize()
+    spmm_launches = bsr_spmm_kernel.launches - s0
+    check(spmm_launches == LARGE_LAYERS
+          and fused_cheb_layer_kernel.launches == f0,
+          f"exact solve launched the SpMM {spmm_launches} times")
+    check(schedule_ok(sel_f, L.adj, g.n), "fused schedule not valid")
+    check(schedule_ok(sel_x, L.adj, g.n), "exact schedule not valid")
+    util_f, util_x = float(util_f), float(util_x)
+    rel = abs(util_f - util_x) / abs(util_x)
+    check(rel <= 0.01, f"fused utility off the exact one by {rel:.4%}")
+    flips = int((sel_f != sel_x).sum())
+    # the LGS through the kernel against the plain gather LGS
+    norm = (w.abs() * m).max() + 1e-9
+    gcn_wts = large_gcn_forward(g, plist, (w / norm * m)[:, None])[:, 0] * m
+    n1 = bsr_nbr_max_kernel.launches
+    bsel, _, rounds = bsr_lgs(g, gcn_wts, g.mask)
+    torch.cuda.synchronize()
+    check(bsr_nbr_max_kernel.launches - n1 == 2 * int(rounds),
+          "bsr_lgs did not launch the neighbour-max twice per round")
+    esel, _, erounds = ell_lgs(g.ell_cols, g.ell_valid, gcn_wts, g.mask)
+    check(torch.equal(bsel, esel) and int(rounds) == int(erounds),
+          "bsr_lgs differs from the plain ell_lgs")
+    check(torch.equal(bsel, sel_f), "bsr_lgs differs from the fused solve")
+    check(nbr_launches == 2 * int(rounds), "solve's LGS launches")
+    print(f"phase 7: make_large_solve dqn, {LARGE_LAYERS}x{LARGE_WIDTH} "
+          f"GCN: fused and exact schedules independent and maximal; "
+          f"utility fused {util_f:.6f}, exact {util_x:.6f} (rel diff "
+          f"{rel:.4%}), {flips} selections differ; bsr_lgs == ell_lgs "
+          f"({int(rounds)} rounds); launches per fused solve: fused layer "
+          f"{fused_launches}, neighbour-max {nbr_launches}; per exact "
+          f"solve: SpMM {spmm_launches}", flush=True)
+    per_solve = marginal_s(lambda i: solve(plist, w * (1.0 + 0.001 * i)))
+    with exact_route():
+        per_exact = marginal_s(lambda i: solve(plist,
+                                               w * (1.0 + 0.001 * i)))
+    feats = m[:, None]                    # mwis features: 1 / F
+    act = large_gcn_forward(g, plist, feats)[:, 0] * m
+    per_hoisted = marginal_s(
+        lambda i: bsr_lgs(g, act * w * (1.0 + 0.001 * i), g.mask))
+    print(f"phase 7: per solve (marginal of 2 and 6 solves): fused dqn "
+          f"{per_solve * 1e3:.4f} ms = "
+          f"{L.adj.nnz * LARGE_LAYERS / per_solve / 1e9:.4f} Gedge-layers/s"
+          f"; exact dqn {per_exact * 1e3:.4f} ms; GCN hoisted (LGS only) "
+          f"{per_hoisted * 1e3:.4f} ms", flush=True)
+
+
+def phase_large_closed_loop(dev, L, tree) -> None:
+    g = L.g
+    plist = params_to_list(tree, device=dev)
+    run = make_large_closed_loop(g, timeslots=LARGE_SLOTS, load=0.9)
+    q0 = torch.zeros(g.n_pad, device=dev)
+    n0 = bsr_nbr_max_kernel.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qT, metrics = run(plist, q0, torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nbr = bsr_nbr_max_kernel.launches - n0
+    check(nbr >= 2 * LARGE_SLOTS, f"neighbour-max launched {nbr} times in "
+          f"{LARGE_SLOTS} slots")
+    check(bool(torch.isfinite(qT).all()) and bool((qT >= 0).all()),
+          "large closed-loop queues")
+    check(bool((qT[~g.mask] == 0).all()), "padding queues not 0")
+    print(f"phase 8: large closed loop, ERGDPG2 l20 c32, gdpg (GCN "
+          f"hoisted), load 0.9, {LARGE_SLOTS} slots: {secs:.4f} s "
+          f"({secs / LARGE_SLOTS * 1e3:.4f} ms per slot, set-up included), "
+          f"neighbour-max launches {nbr}, avg_queue_len "
+          f"{float(metrics['avg_queue_len']):.4f}, avg_utility "
+          f"{float(metrics['avg_utility']):.2f}, sched_rate "
+          f"{float(metrics['sched_rate']):.6f}", flush=True)
+
+
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_large_timing(dev, L) -> dict:
+    g, ind, rp = L.g, L.g.ind_bsr, L.g.ind_row_ptr
+    n, nnz, f = g.n_pad, L.adj.nnz, LARGE_WIDTH
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    words = ind.blk_vals.numel() * 4
+    meta = rp.numel() * 4 + ind.blk_cols.numel() * 4
+    coo = L.adj.tocoo()
+    src = torch.from_numpy(coo.col.astype(np.int64)).to(dev)
+    dst = torch.from_numpy(coo.row.astype(np.int64)).to(dev)
+    out = {}
+
+    def report(name, ms, plain_ms, lib_ms, bnd, what):
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     **bnd}
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms (eager)"
+        print(f"phase 9: {name} {what}, L2 flushed: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib}, bound "
+              f"{bnd['bound_ms'] * 1e3:.3f} us ({bnd['bound_by']}), kernel "
+              f"at {bnd['bound_ms'] / ms:.2%} of the bound", flush=True)
+
+    # neighbour-max on the LGS's rank operand
+    x = lgs_ranks(L.w).to(torch.float32)
+    ms = graph_ms(lambda: bsr_neighbor_max(ind, x, rp), 100, flush)
+    plain_ms = event_ms(lambda: bsr_nbr_max_plain(
+        ind.blk_vals, rp, ind.blk_cols, x, n, 256, True), 5, flush)
+    lib_ms = event_ms(lambda: torch.full((n,), NEG_HUGE, device=dev)
+                      .scatter_reduce_(0, dst, x[src], "amax"), 50, flush)
+    report("bsr_nbr_max", ms, plain_ms, lib_ms,
+           bound(words + meta + 2 * n * 4, f32_ops=nnz),
+           "bitmap N=65,536 (library: scatter_reduce amax over the edge "
+           "list, the x[src] gather counted)")
+    # SpMM on the exact route's operand
+    y = torch.randn((n, f), generator=gen, device=dev) * g.r
+    ms = graph_ms(lambda: bsr_spmm_rows(ind, y, rp), 50, flush)
+    plain_ms = event_ms(lambda: bsr_spmm_plain(
+        ind.blk_vals, rp, ind.blk_cols, y, n, 256, True), 5, flush)
+    a = structure(L.adj, n)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.ones(nnz), size=(n, n), check_invariants=True).to(dev)
+    lib_ms = event_ms(lambda: torch.sparse.mm(csr, y), 50, flush)
+    report("bsr_spmm", ms, plain_ms, lib_ms,
+           bound(words + meta + 2 * n * f * 4, f32_ops=2 * nnz * f),
+           "bitmap N=65,536 F=128 (library: torch.sparse.mm on a CSR copy)")
+    # fused hidden layer
+    h = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
+    r = g.r.reshape(-1).contiguous()
+    p = pad_layer_params(L.plist[1], f)
+    args = (ind.blk_vals, rp, ind.blk_cols, h, r, p["w1"], p["w01"],
+            p["bias"], n, 256, 1, torch.bfloat16, True)
+    ms = graph_ms(lambda: fused_cheb_layer(*args), 50, flush)
+    plain_ms = event_ms(lambda: fused_cheb_layer_plain(*args), 5, flush)
+    report("cheb_fused", ms, plain_ms, None,
+           bound(words + meta + 2 * n * f * 2 + n * 4 + 2 * f * f * 4 + f * 4,
+                 f32_ops=4 * n * f * f, bf16_ops=2 * nnz * f),
+           "hidden layer N=65,536 F=128 (no single PyTorch call computes "
+           "the layer)")
+    return out
+
+
+LARGE_KERNELS = (
+    ("bsr_nbr_max", "distgcn_tpu_torch/csrc/bsr_nbr_max.cu",
+     "distgcn_tpu/ops/spmm.py:614"),
+    ("bsr_spmm", "distgcn_tpu_torch/csrc/bsr_spmm.cu",
+     "distgcn_tpu/ops/spmm.py:203"),
+    ("cheb_fused", "distgcn_tpu_torch/csrc/cheb_fused.cu",
+     "distgcn_tpu/ops/cheb_fused.py:364"),
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in (batched_lgs_kernel, bsr_nbr_max_kernel, bsr_spmm_kernel,
+               fused_cheb_layer_kernel):
+        fn.launches = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -308,17 +716,33 @@ def main() -> int:
     tree = load_params(CKPT)
     max_err = phase_kernel_vs_plain(dev)
     phase_pipeline(dev, cfg, tree)
-    batched_lgs_kernel.launches = 0
+    reset_launch_counts()
     phase_closed_loop(dev, cfg, tree)
     launches = batched_lgs_kernel.launches
     check(launches > 0, "the closed loop never launched the LGS kernel")
     timing = phase_timing(dev)
-    kernel = {"name": "lgs", "route": "cuda",
-              "source": "distgcn_tpu_torch/csrc/lgs.cu",
-              "replaces": "distgcn_tpu/ops/lgs_pallas.py:48",
-              "launches": launches, "max_abs_err": max_err, **timing,
-              "library_ms": None}
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = [{"name": "lgs", "route": "cuda",
+                "source": "distgcn_tpu_torch/csrc/lgs.cu",
+                "replaces": "distgcn_tpu/ops/lgs_pallas.py:48",
+                "launches": launches, "max_abs_err": max_err, **timing,
+                "library_ms": None}]
+
+    large = phase_large_setup(dev)
+    errs = phase_large_kernels(dev, large)
+    reset_launch_counts()
+    phase_large_solve(dev, large)
+    phase_large_closed_loop(dev, large, tree)
+    counts = {"bsr_nbr_max": bsr_nbr_max_kernel.launches,
+              "bsr_spmm": bsr_spmm_kernel.launches,
+              "cheb_fused": fused_cheb_layer_kernel.launches}
+    for name, count in counts.items():
+        check(count > 0, f"the large-graph path never launched {name}")
+    timings = phase_large_timing(dev, large)
+    for name, source, replaces in LARGE_KERNELS:
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": errs[name], **timings[name]})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

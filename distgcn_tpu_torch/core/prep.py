@@ -13,11 +13,29 @@ Port of the dense half of `distgcn_tpu/core/prep.py` (the reference's
 - ``preprocess_features_dense``: row normalization, zero-sum rows -> 0.
 
 Normalization math always runs in f32, on any [..., N, N] batch.
+
+``normalize_adj`` is the host (scipy) normalization the large-graph
+builder uses, float64 as in the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import scipy.sparse as sp
 import torch
+
+
+def normalize_adj(adj) -> sp.coo_matrix:
+    """Symmetric normalization D^-1/2 A D^-1/2 of a scipy adjacency
+    (gcn/utils.py:120-128); rows of isolated nodes are zero."""
+    adj = sp.coo_matrix(adj)
+    rowsum = np.array(adj.sum(1)).flatten()
+    with np.errstate(divide="ignore"):
+        d_inv_sqrt = np.power(rowsum, -0.5)
+    d_inv_sqrt[np.isinf(d_inv_sqrt)] = 0.0
+    d = sp.diags(d_inv_sqrt)
+    # (A @ D^-1/2)^T @ D^-1/2 == D^-1/2 A^T D^-1/2; A is symmetric
+    return adj.dot(d).transpose().dot(d).tocoo()
 
 
 def normalize_adj_dense(adj: torch.Tensor) -> torch.Tensor:

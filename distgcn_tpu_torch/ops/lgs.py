@@ -11,7 +11,8 @@ plus a winner-neighbour exclusion, with no tie logic.
 `batched_lgs` launches the hand-written CUDA kernel (`ops/lgs_cuda.py`) for
 CUDA tensors and runs `batched_lgs_plain` for CPU tensors. The JAX
 package's 3-round unroll is an XLA detail: rounds and selections do not
-depend on it.
+depend on it. `ell_lgs` runs the same rounds on one large graph in
+neighbour-list form (the large path's gather route, `large.py`).
 
 State labels: -1 remaining, 0 excluded (or padding), 1 selected.
 """
@@ -104,3 +105,36 @@ def batched_lgs(adj: torch.Tensor, wts: torch.Tensor, mask: torch.Tensor,
 # Centralized greedy == LGS under the (w, -id) tie-break (the JAX package's
 # ops/lgs.py module docstring gives the argument).
 batched_greedy = batched_lgs
+
+
+def ell_lgs(cols: torch.Tensor, valid: torch.Tensor, wts: torch.Tensor,
+            mask: torch.Tensor, max_rounds: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LGS over one large graph in ELLPACK neighbour-list form: the plain
+    gather formulation, O(N*K) per round.
+
+      cols  [N, K] int neighbour ids (self-padded rows allowed)
+      valid [N, K] bool, True for real edges
+      wts   [N] weights, mask [N] bool real-node mask
+
+    Same rounds as `batched_lgs`; returns (sel [N] int8, util, rounds).
+    Synchronises with the host once per round (the loop condition).
+    """
+    n = wts.shape[-1]
+    ranks = lgs_ranks(wts)
+    cols = cols.long()
+    sel = torch.where(mask, -1, 0).to(torch.int8)
+    cap = n if max_rounds is None else int(max_rounds)
+    r = 0
+    while r < cap and bool((sel == -1).any()):
+        remain = sel == -1
+        rr = torch.where(remain, ranks, torch.full_like(ranks, -1))
+        m = torch.where(valid, rr[cols], -1).amax(dim=-1)
+        win = remain & (ranks > m)
+        hit = (valid & win[cols]).any(dim=-1)
+        excl = remain & ~win & hit
+        sel = torch.where(win, torch.ones_like(sel), sel)
+        sel = torch.where(excl, torch.zeros_like(sel), sel)
+        r += 1
+    util = torch.where(sel == 1, wts, torch.zeros_like(wts)).sum(dim=-1)
+    return sel, util, torch.tensor(r, dtype=torch.int32, device=wts.device)

@@ -22,21 +22,6 @@ from distgcn_tpu_torch.ops.lgs import lgs_ranks
 
 MAX_N = 1024   # one thread per node in one CTA
 
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("lgs")
-        lib.lgs_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        lib.lgs_launch.restype = ctypes.c_int
-        lib.lgs_error_string.argtypes = [ctypes.c_int]
-        lib.lgs_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
 
 def batched_lgs_kernel(adj: torch.Tensor, wts: torch.Tensor,
                        mask: torch.Tensor, max_rounds: Optional[int] = None
@@ -88,15 +73,13 @@ def launch(adj: torch.Tensor, ranks: torch.Tensor, mask: torch.Tensor,
     b, n = ranks.shape
     sel = torch.empty((b, n), dtype=torch.int8, device=adj.device)
     rounds = torch.empty((b,), dtype=torch.int32, device=adj.device)
-    lib = _library()
+    launch_fn = _build.bind("lgs", "lgs_launch",
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p])
     with torch.cuda.device(adj.device):
-        stream = torch.cuda.current_stream(adj.device).cuda_stream
-        err = lib.lgs_launch(adj.data_ptr(), ranks.data_ptr(),
-                             mask.data_ptr(), sel.data_ptr(),
-                             rounds.data_ptr(), b, n, cap, stream)
-    if err != 0:
-        raise RuntimeError(f"lgs kernel launch failed: "
-                           f"{lib.lgs_error_string(err).decode()} ({err})")
+        launch_fn(adj.data_ptr(), ranks.data_ptr(), mask.data_ptr(),
+                  sel.data_ptr(), rounds.data_ptr(), b, n, cap,
+                  _build.stream_of(adj))
     batched_lgs_kernel.launches += 1
     return sel, rounds
 

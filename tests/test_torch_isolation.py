@@ -43,7 +43,9 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
     for mod in ("agents", "pipeline", "core.graph", "core.prep",
                 "models.gcn", "models.layers", "ops.lgs", "ops.lgs_cuda",
                 "ops._build", "sim.device_sim", "utils.config",
-                "utils.device", "utils.serialization"):
+                "utils.device", "utils.serialization", "ops.spmm",
+                "ops.spmm_cuda", "ops.nbr_max_cuda", "ops.cheb_fused",
+                "ops.cheb_fused_cuda", "large"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
     assert result["banned"] == []
 

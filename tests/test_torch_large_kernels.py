@@ -1,0 +1,182 @@
+"""The large-graph CUDA kernels against their plain PyTorch versions, on
+the card (`-m cuda`; they skip without one).
+
+This file imports only the port (no JAX module backed by flax), so it
+collects on the machine with the card. The plain versions are held to the
+JAX package by `tests/test_torch_spmm.py`, `test_torch_cheb_fused.py` and
+`test_torch_large.py` on the CPU. Tolerances: neighbour-max bit-equal;
+SpMM rtol 2e-5 / atol 1e-5 (`tests/test_spmm.py`); fused layer within two
+bf16 ulps at the layer's scale and a mean relative difference < 1e-3.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from distgcn_tpu_torch import large
+from distgcn_tpu_torch.ops import cheb_fused, spmm
+from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
+from distgcn_tpu_torch.ops.nbr_max_cuda import bsr_nbr_max_kernel
+from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _pattern(seed, n, m=None, empty=None, bw=160, deg=8):
+    """Banded random pattern, values in [0.1, 1.1); `empty` a row range
+    with no entries (an empty block-row), ragged n allowed."""
+    rng = np.random.default_rng(seed)
+    m = n if m is None else m
+    rows = rng.integers(0, n, n * deg)
+    cols = (rows + rng.integers(-bw, bw, n * deg)) % m
+    s = sp.coo_matrix((rng.random(n * deg).astype(np.float32) + 0.1,
+                       (rows, cols)), shape=(n, m)).tocsr()
+    if empty is not None:
+        s = s.tolil()
+        s[empty[0]:empty[1], :] = 0
+        s = s.tocsr()
+        s.eliminate_zeros()
+    return s
+
+
+CASES = {"ragged": dict(n=1000), "empty_block_row": dict(n=1024,
+                                                         empty=(256, 512)),
+         "rectangular": dict(n=512, m=1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("bitmap,bs", [(True, 256), (True, 64),
+                                       (False, 128)])
+def test_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
+    s = _pattern(1, **CASES[case])
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits" if bitmap else np.int8,
+                                  device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    x = torch.randn(b.n_cols, generator=torch.Generator().manual_seed(0))
+    x = x.to(cuda)
+    before = bsr_nbr_max_kernel.launches
+    got = spmm.bsr_neighbor_max(b, x, rp)
+    assert bsr_nbr_max_kernel.launches == before + 1
+    want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows,
+                                  bs, bitmap)
+    assert torch.equal(got, want)
+    has = torch.zeros(b.n_rows, dtype=torch.bool, device=cuda)
+    has[: s.shape[0]] = torch.from_numpy(np.diff(s.indptr) > 0).to(cuda)
+    assert bool((got[~has] == spmm.NEG_HUGE).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kind,bs", [("f32", 128), ("bf16", 64),
+                                     ("int8", 128), ("bits", 256)])
+@pytest.mark.parametrize("f", [1, 24, 128, 160])
+def test_spmm_kernel_matches_plain(cuda, case, kind, bs, f):
+    s = _pattern(2, **CASES[case])
+    if kind in ("int8", "bits"):
+        s.data[:] = 1.0
+    dtype = {"f32": np.float32, "bf16": torch.bfloat16, "int8": np.int8,
+             "bits": "bits"}[kind]
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype=dtype, device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    x = torch.rand((s.shape[1], f), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda)
+    before = bsr_spmm_kernel.launches
+    got = spmm.bsr_spmm_rows(b, x, rp)
+    got_grid = spmm.bsr_spmm(b, x)
+    assert bsr_spmm_kernel.launches == before + 2
+    xp = torch.cat([x, x.new_zeros((b.n_cols - s.shape[1], f))])
+    want = spmm.bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, xp, b.n_rows, bs,
+                               b.bitmap)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    assert torch.equal(got, got_grid)
+    if "empty" in case:
+        assert not got[256:512].any()
+
+
+def _fused_inputs(cuda, bitmap, f, seed=3):
+    adj, _, _ = large.geometric_conflict_graph(3000, avg_degree=24.0,
+                                               seed=seed, order="grid")
+    g = large.build_large_graph(adj, block_size=512, device=cuda)
+    if not bitmap:                  # the same blocks as an int8 stream
+        s = sp.csr_matrix(adj, dtype=np.float32, copy=True)
+        s.data[:] = 1.0
+        s.resize(g.n_pad, g.n_pad)
+        g.ind_bsr = spmm.BsrMatrix.from_scipy(s, 256, dtype=np.int8,
+                                              device=cuda)
+        g.bitmap = False
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn((g.n_pad, f), generator=gen).to(cuda).to(torch.bfloat16)
+    w0 = torch.randn((f, f), generator=gen) * f ** -0.5
+    w1 = torch.randn((f, f), generator=gen) * f ** -0.5
+    p = cheb_fused.pad_layer_params(
+        {"w_0": w0, "w_1": w1, "bias": torch.randn(f, generator=gen) * 0.1},
+        f)
+    return g, h, {k: v.to(cuda) for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [True, False])
+@pytest.mark.parametrize("f", [32, 64, 96, 128])
+def test_fused_layer_kernel_matches_plain(cuda, bitmap, f):
+    g, h, p = _fused_inputs(cuda, bitmap, f)
+    ind = g.ind_bsr
+    r = g.r.reshape(-1).contiguous()
+    for act, dt in ((1, torch.bfloat16), (0, torch.float32)):
+        before = fused_cheb_layer_kernel.launches
+        got = cheb_fused.fused_cheb_layer(
+            ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
+            p["w01"], p["bias"], ind.n_rows, ind.block_size, act, dt, bitmap)
+        assert fused_cheb_layer_kernel.launches == before + 1
+        want = cheb_fused.fused_cheb_layer_plain(
+            ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
+            p["w01"], p["bias"], ind.n_rows, ind.block_size, act, dt, bitmap)
+        assert got.dtype == want.dtype == dt
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2.0 ** -6 * scale
+        rel = ((got - want).abs() / (want.abs() + 1e-2)).mean()
+        assert float(rel) < 1e-3
+
+
+@pytest.mark.cuda
+def test_large_solve_on_card_goes_through_the_kernels(cuda, monkeypatch):
+    adj, wts, _ = large.geometric_conflict_graph(4000, avg_degree=24.0,
+                                                 seed=5, order="grid")
+    g = large.build_large_graph(adj, block_size=512, device=cuda)
+    assert g.use_bsr and g.bitmap
+    gen = torch.Generator().manual_seed(0)
+    tree = {f"gc{i + 1}": {"w_0": torch.randn(fi, fo, generator=gen) * 0.3,
+                           "w_1": torch.randn(fi, fo, generator=gen) * 0.3}
+            for i, (fi, fo) in enumerate([(1, 32), (32, 32), (32, 1)])}
+    plist = large.params_to_list(tree, device=cuda)
+    w = torch.zeros(g.n_pad)
+    w[: g.n] = torch.from_numpy(wts)
+    w = w.to(cuda)
+    solve = large.make_large_solve(g, predict="dqn")
+    f0 = fused_cheb_layer_kernel.launches
+    sel, util, _ = solve(plist, w)
+    torch.cuda.synchronize()
+    assert fused_cheb_layer_kernel.launches - f0 == 3
+    m = g.mask.to(torch.float32)
+    gcn_wts = large.large_gcn_forward(
+        g, plist, large._features(g, w, m, 1, "dqn"))[:, 0] * m
+    n0 = bsr_nbr_max_kernel.launches
+    bsel, _, rounds = large.bsr_lgs(g, gcn_wts, g.mask)
+    assert bsr_nbr_max_kernel.launches - n0 == 2 * int(rounds)
+    esel = large.ell_lgs(g.ell_cols, g.ell_valid, gcn_wts, g.mask)[0]
+    assert torch.equal(bsel, esel) and torch.equal(bsel, sel)
+    # the exact route: one SpMM launch per layer
+    s0 = bsr_spmm_kernel.launches
+    monkeypatch.setenv("DISTGCN_LARGE_EXACT", "1")
+    _, xutil, _ = solve(plist, w)
+    torch.cuda.synchronize()
+    assert bsr_spmm_kernel.launches - s0 == 3
+    assert abs(float(util) - float(xutil)) <= 0.01 * abs(float(xutil))
