@@ -50,11 +50,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    launched every slot;
 9. the large-graph kernels timed at the main path's shapes (CUDA-graph
    replays, L2 flushed) beside the plain version, the bound and a PyTorch
-   library call computing the same function where there is one.
+   library call computing the same function where there is one;
+10. the sharded giant-graph path at phase 6's width: a one-rank NCCL
+   group opened by `parallel.distributed.initialize` from the DISTGCN_*
+   environment, the graph sharded by `shard_large_graph(adj, 1,
+   block_size=256)` (the same 256x256 bitmap blocks as phase 6), and
+   `make_sharded_large_solve` with the phase 6 model (predict="dqn"), whose
+   selections must equal phase 7's exact route and its utility within rtol
+   1e-5, and with a bias-only model (predict="mwis", scores = weights),
+   whose selections must equal `bsr_lgs`. Launches: one SpMM per layer and
+   one int32 and one f32 neighbour-max per LGS round per rank;
+11. the int32 neighbour-max against its plain version at the solve's
+   shapes (payloads up to 2^31 - 2, bit-equal), `distributed_lgs_ranks` on
+   2^24 + 4096 weights with ties equal to `lgs_ranks` (where f32 ranks
+   would collide), the int32 neighbour-max timed as in phase 9, and the
+   sharded solve's time beside the exact route's (marginal of 2 and 6
+   solves).
 
 The launch counts of the JSON line come from the main paths: phase 4 for
-the LGS kernel, phases 7-8 for the large-graph kernels (counts set to 0
-just before, read just after).
+the LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the
+int32 neighbour-max (counts set to 0 just before, read just after). Runs
+of the sharded path across several cards (D > 1 over NCCL) need a
+multi-card machine; this script takes one card.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the one before it a JSON object with one entry per kernel.
@@ -66,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -74,6 +92,7 @@ from types import SimpleNamespace
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.distributed as dist
 
 from distgcn_tpu_torch.agents import build_state_arrays
 from distgcn_tpu_torch.core.graph import GraphBatch
@@ -92,12 +111,18 @@ from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
 from distgcn_tpu_torch.ops.lgs import (batched_lgs_plain, ell_lgs,
                                        lgs_ranks)
 from distgcn_tpu_torch.ops.lgs_cuda import batched_lgs_kernel, launch
-from distgcn_tpu_torch.ops.nbr_max_cuda import bsr_nbr_max_kernel
-from distgcn_tpu_torch.ops.spmm import (NEG_HUGE, BsrMatrix,
+from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
+                                               bsr_nbr_max_kernel)
+from distgcn_tpu_torch.ops.spmm import (I32_SENT, NEG_HUGE, BsrMatrix,
                                         bsr_nbr_max_plain, bsr_neighbor_max,
                                         bsr_row_ptr, bsr_spmm, bsr_spmm_plain,
-                                        bsr_spmm_rows)
+                                        bsr_spmm_rows, nbr_max_rows)
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
+from distgcn_tpu_torch.parallel import distributed
+from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
+from distgcn_tpu_torch.parallel.large_sharded import (make_sharded_large_solve,
+                                                      shard_arrays,
+                                                      shard_large_graph)
 from distgcn_tpu_torch.pipeline import make_solve_pipeline
 from distgcn_tpu_torch.sim.device_sim import make_closed_loop
 from distgcn_tpu_torch.utils.config import Config
@@ -685,6 +710,202 @@ def phase_large_timing(dev, L) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded giant-graph path
+# ---------------------------------------------------------------------------
+
+RANKS_N = (1 << 24) + 4096     # past f32's exact integers
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_group(dev):
+    """A one-rank NCCL group opened by `parallel.distributed.initialize`
+    from the DISTGCN_* environment; destroyed on exit."""
+    env = {"DISTGCN_COORDINATOR": f"localhost:{free_port()}",
+           "DISTGCN_NUM_PROCESSES": "1", "DISTGCN_PROCESS_ID": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(distributed.initialize(device=dev),
+              "initialize did not open a process group")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bias_only_params(dev):
+    """One layer, zero kernels, bias 1: scores are 1 on every real node."""
+    return params_to_list({"gc1": {"w_0": torch.zeros(1, 1),
+                                   "w_1": torch.zeros(1, 1),
+                                   "bias": torch.ones(1)}}, device=dev)
+
+
+def phase_sharded(dev, L) -> SimpleNamespace:
+    """The sharded main path (phase 10); returns what phase 11 needs."""
+    g, w = L.g, L.w
+    # the single-card references, before the counts are reset
+    with exact_route():
+        n0 = bsr_nbr_max_kernel.launches
+        xsel, xutil, _ = make_large_solve(g, predict="dqn")(L.plist, w)
+        torch.cuda.synchronize()
+        x_rounds = (bsr_nbr_max_kernel.launches - n0) // 2
+    bsel, butil, b_rounds = bsr_lgs(g, w, g.mask)
+    b_rounds = int(b_rounds)
+    t0 = time.perf_counter()
+    sg = shard_large_graph(L.adj, 1, block_size=256)
+    t1 = time.perf_counter()
+    ind = g.ind_bsr
+    check(sg.bitmap and sg.separable and sg.nnz_blocks == ind.num_blocks
+          and np.array_equal(sg.ind[0, 0, :sg.nnz_blocks],
+                             ind.blk_vals.cpu().numpy()),
+          "the sharded panel is not phase 6's bitmap stream")
+    rank, world, _, _ = distributed.process_info()
+    check(dist.get_backend() == "nccl" and (rank, world) == (0, 1),
+          f"process group {dist.get_backend()} rank {rank} of {world}")
+    probe = torch.ones(1, device=dev)
+    dist.all_reduce(probe)                 # the group's collectives run
+    check(float(probe) == 1.0, "NCCL all_reduce")
+    a = shard_arrays(sg, device=dev)
+    w_loc = distributed.host_to_local(w.cpu().numpy(), rank, world, dev)
+    m_loc = a[4]
+    solve = make_sharded_large_solve(sg, predict="dqn", device=dev)
+    bsolve = make_sharded_large_solve(sg, predict="mwis", device=dev)
+    bplist = bias_only_params(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"phase 10: NCCL group of {world} rank(s); shard_large_graph(D=1, "
+          f"bs=256) {t1 - t0:.3f} s: {sg.nnz_blocks} bitmap blocks, the "
+          f"words of phase 6; shard_arrays {t2 - t1:.3f} s", flush=True)
+
+    reset_launch_counts()
+    sel, util = solve(*a[:4], L.plist, w_loc, m_loc)
+    torch.cuda.synchronize()
+    dqn = launch_counts()
+    sel_b, util_b = bsolve(*a[:4], bplist, w_loc, m_loc)
+    torch.cuda.synchronize()
+    total = launch_counts()
+    bias = {k: total[k] - dqn[k] for k in total}
+
+    check(dqn["bsr_spmm"] == world * LARGE_LAYERS
+          and dqn["bsr_nbr_max_i32"] == dqn["bsr_nbr_max"]
+          == world * x_rounds and dqn["cheb_fused"] == 0,
+          f"sharded dqn solve launches {dqn} ({x_rounds} LGS rounds)")
+    check(bias["bsr_spmm"] == world and bias["bsr_nbr_max_i32"]
+          == bias["bsr_nbr_max"] == world * b_rounds,
+          f"sharded bias-only solve launches {bias} ({b_rounds} rounds)")
+    flips = int((sel != xsel).sum())
+    rel = abs(float(util) - float(xutil)) / abs(float(xutil))
+    check(flips == 0 and rel <= 1e-5, f"sharded dqn solve: {flips} "
+          f"selections differ from the exact route, utility rel {rel}")
+    check(schedule_ok(sel, L.adj, g.n), "sharded schedule not valid")
+    bflips = int((sel_b != bsel).sum())
+    brel = abs(float(util_b) - float(butil)) / abs(float(butil))
+    check(bflips == 0 and brel <= 1e-5, f"sharded bias-only solve: {bflips} "
+          f"selections differ from bsr_lgs, utility rel {brel}")
+    print(f"phase 10: make_sharded_large_solve dqn {LARGE_LAYERS}x"
+          f"{LARGE_WIDTH}: {flips} selections differ from the exact route "
+          f"(utility {float(util):.6f} vs {float(xutil):.6f}, rel "
+          f"{rel:.3g}); launches: SpMM {dqn['bsr_spmm']}, int32 "
+          f"neighbour-max {dqn['bsr_nbr_max_i32']}, f32 neighbour-max "
+          f"{dqn['bsr_nbr_max']} ({x_rounds} LGS rounds)", flush=True)
+    print(f"phase 10: bias-only mwis solve: {bflips} selections differ from "
+          f"bsr_lgs (utility {float(util_b):.6f} vs {float(butil):.6f}); "
+          f"launches: SpMM {bias['bsr_spmm']}, int32 neighbour-max "
+          f"{bias['bsr_nbr_max_i32']}, f32 neighbour-max "
+          f"{bias['bsr_nbr_max']} ({b_rounds} LGS rounds)", flush=True)
+    return SimpleNamespace(sg=sg, a=a, w_loc=w_loc, solve=solve,
+                           launches=total["bsr_nbr_max_i32"],
+                           counts={"dqn": dqn, "bias": bias})
+
+
+def phase_sharded_kernels(dev, L, S) -> dict:
+    """Phase 11: the int32 neighbour-max against its plain version and
+    timed, the distributed ranks past 2^24, the sharded solve's time."""
+    n, nnz = S.sg.n_loc, L.adj.nnz
+    ind, rptr, cols = S.a[0][0], S.a[1][0], S.a[2][0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ranks = lgs_ranks(S.w_loc)
+    remain = torch.rand(n, generator=gen, device=dev) < 0.5
+    # the rank operand of an LGS round, and the same shifted to the top of
+    # the int32 range (payloads past 2^24 up to 2^31 - 2)
+    x_round = torch.where(remain, ranks, -1)
+    x_high = torch.where(remain, ranks + (2 ** 31 - 2 - n), -1)
+    worst = 0
+    for kind, x in (("round operand", x_round), ("payloads to 2^31-2",
+                                                 x_high)):
+        got = nbr_max_rows(ind, rptr, cols, x, n, 256, True)
+        torch.cuda.synchronize()
+        want = bsr_nbr_max_plain(ind, rptr, cols, x, n, 256, True)
+        check(torch.equal(got, want), f"int32 neighbour-max ({kind}) "
+              "differs from its plain version")
+        worst = max(worst, int((got.long() - want.long()).abs().max()))
+        print(f"phase 11: bsr_nbr_max_i32 {kind}: bit-equal to the plain "
+              f"version, max {int(got.max())}, "
+              f"{int((got == I32_SENT).sum())} sentinel rows", flush=True)
+    # ranks past f32's integers
+    w_big = torch.rand(RANKS_N, generator=gen, device=dev)
+    w_big[torch.randint(0, RANKS_N, (RANKS_N // 8,), generator=gen,
+                        device=dev)] = 0.5
+    t0 = time.perf_counter()
+    r_dist = distributed_lgs_ranks(w_big)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r_ref = lgs_ranks(w_big)
+    check(torch.equal(r_dist, r_ref) and int(r_dist.min()) == 1
+          and int(r_dist.max()) == RANKS_N, "distributed_lgs_ranks differs "
+          "from lgs_ranks past 2^24")
+    collide = int((r_dist.float().long() != r_dist.long()).sum())
+    check(collide > 0, "f32 would have kept every rank")
+    print(f"phase 11: distributed_lgs_ranks n={RANKS_N} ({RANKS_N // 8} "
+          f"draws tied at 0.5): equal to lgs_ranks, {collide} ranks not "
+          f"exact in f32; {(t1 - t0) * 1e3:.3f} ms", flush=True)
+    # the int32 neighbour-max at the solve's shapes
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    coo = L.adj.tocoo()
+    src = torch.from_numpy(coo.col.astype(np.int64)).to(dev)
+    dst = torch.from_numpy(coo.row.astype(np.int64)).to(dev)
+    ms = graph_ms(lambda: nbr_max_rows(ind, rptr, cols, x_round, n, 256,
+                                       True), 100, flush)
+    plain_ms = event_ms(lambda: bsr_nbr_max_plain(ind, rptr, cols, x_round,
+                                                  n, 256, True), 5, flush)
+    lib_ms = event_ms(lambda: torch.full((n,), I32_SENT, dtype=torch.int32,
+                                         device=dev).scatter_reduce_(
+        0, dst, x_round[src], "amax"), 50, flush)
+    words = S.sg.nnz_blocks * 8 * 256 * 4
+    meta = (rptr.numel() + S.sg.nnz_blocks) * 4
+    bnd = bound(words + meta + 2 * n * 4, f32_ops=nnz)
+    print(f"phase 11: bsr_nbr_max_i32 bitmap N={n}, L2 flushed: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(scatter_reduce int32 amax over the edge list, x[src] gather "
+          f"counted, eager), bound {bnd['bound_ms'] * 1e3:.3f} us "
+          f"({bnd['bound_by']}: {words + meta + 2 * n * 4} bytes), kernel "
+          f"at {bnd['bound_ms'] / ms:.2%} of the bound", flush=True)
+    # the sharded solve beside the exact route
+    per_sharded = marginal_s(lambda i: S.solve(
+        *S.a[:4], L.plist, S.w_loc * (1.0 + 0.001 * i), S.a[4]))
+    exact = make_large_solve(L.g, predict="dqn")
+    with exact_route():
+        per_exact = marginal_s(lambda i: exact(L.plist,
+                                               L.w * (1.0 + 0.001 * i)))
+    print(f"phase 11: per solve (marginal of 2 and 6 solves): sharded dqn "
+          f"(D=1) {per_sharded * 1e3:.4f} ms, exact route "
+          f"{per_exact * 1e3:.4f} ms", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bnd}
+
+
 LARGE_KERNELS = (
     ("bsr_nbr_max", "distgcn_tpu_torch/csrc/bsr_nbr_max.cu",
      "distgcn_tpu/ops/spmm.py:614"),
@@ -695,10 +916,18 @@ LARGE_KERNELS = (
 )
 
 
+COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
+           "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
+           "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
+
+
 def reset_launch_counts() -> None:
-    for fn in (batched_lgs_kernel, bsr_nbr_max_kernel, bsr_spmm_kernel,
-               fused_cheb_layer_kernel):
+    for fn in COUNTED.values():
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def main() -> int:
@@ -732,16 +961,24 @@ def main() -> int:
     reset_launch_counts()
     phase_large_solve(dev, large)
     phase_large_closed_loop(dev, large, tree)
-    counts = {"bsr_nbr_max": bsr_nbr_max_kernel.launches,
-              "bsr_spmm": bsr_spmm_kernel.launches,
-              "cheb_fused": fused_cheb_layer_kernel.launches}
-    for name, count in counts.items():
-        check(count > 0, f"the large-graph path never launched {name}")
+    counts = launch_counts()
+    for name, _, _ in LARGE_KERNELS:
+        check(counts[name] > 0, f"the large-graph path never launched {name}")
     timings = phase_large_timing(dev, large)
     for name, source, replaces in LARGE_KERNELS:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": errs[name], **timings[name]})
+
+    with nccl_group(dev):
+        sharded = phase_sharded(dev, large)
+        check(sharded.launches > 0,
+              "the sharded path never launched the int32 neighbour-max")
+        kernels.append({"name": "bsr_nbr_max_i32", "route": "cuda",
+                        "source": "distgcn_tpu_torch/csrc/bsr_nbr_max.cu",
+                        "replaces": "distgcn_tpu/ops/spmm.py:521",
+                        "launches": sharded.launches,
+                        **phase_sharded_kernels(dev, large, sharded)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

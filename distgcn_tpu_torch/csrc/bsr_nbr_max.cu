@@ -1,21 +1,26 @@
 // Block-sparse neighbour-max: y[i] = max over j with S[i, j] != 0 of x[j].
 //
 // Replaces the TPU kernels of distgcn_tpu/ops/spmm.py that compute this
-// function over 0/1 structure blocks with an f32 payload:
+// function over 0/1 structure blocks. With an f32 payload
+// (bsr_nbr_max_f32_launch):
 //   _nbr_max_chunk_kernel (launcher _bsr_nbr_max_chunks),
 //   _nbr_max_panel_kernel (_bsr_nbr_max_panels),
 //   _nbr_max_kernel       (_bsr_nbr_max, block grid),
 //   _nbr_max_row_kernel   (_bsr_nbr_max_rows).
 // On the TPU they differ only in how the blocks are tiled through VMEM;
-// here one kernel covers them. The int32 payload of
-// _nbr_max_row_kernel_i32 is a second instantiation of the same template
-// (Payload<int32_t>, sentinel -(2^31)+1), left for the sharded path.
+// here one kernel covers them. With an int32 payload
+// (bsr_nbr_max_i32_launch), the same template instantiated for int32_t:
+//   _nbr_max_row_kernel_i32 (_bsr_nbr_max_rows_i32), which carries the
+//   sharded solve's LGS ranks exactly past 2^24 nodes. Payloads are
+//   compared as integers and never pass through float.
 //
 // Blocks: int8 [nb, bs, bs] (nonzero = edge) or bitmap [nb, bs/32, bs]
 // int32 words, bit i % 32 of word [i / 32, j] = cell (i, j) (the JAX
 // package's pack_bits_blocks layout). Blocks are sorted by block-row and
-// row_ptr [R+1] indexes them. A row with no neighbour, padding rows and
-// empty block-rows included, gets the sentinel -3.0e38.
+// row_ptr [R+1] indexes them; blocks past row_ptr[R] (a sharded panel's
+// padding) are never read. A row with no neighbour, padding rows and
+// empty block-rows included, gets the sentinel: -3.0e38 for f32,
+// -(2^31)+1 for int32.
 //
 // What bounds it on an H100: bytes. At N=65,536 (bs=256, 1,966 bitmap
 // blocks) one pass must read 16.1 MB of words plus x and write y: about
@@ -43,6 +48,13 @@ struct Payload<float> {
   static __device__ __forceinline__ float sentinel() { return -3.0e38f; }
 };
 
+template <>
+struct Payload<int32_t> {
+  static __device__ __forceinline__ int32_t sentinel() {
+    return -2147483647;  // -(2^31) + 1
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T take_max(T m, T v) {
   return v > m ? v : m;
@@ -54,8 +66,11 @@ __global__ void nbr_max_kernel(const void* __restrict__ vals,
                                const int32_t* __restrict__ blk_cols,
                                const T* __restrict__ x, T* __restrict__ y,
                                int bs) {
+  static_assert(sizeof(T) == 4, "f32 and int32 payloads");
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
+  // bs is a multiple of 32, so bs * 4 bytes keep `words` 16-byte aligned
+  // for the uint4 stores below
   uint32_t* words = reinterpret_cast<uint32_t*>(smem + bs * sizeof(T));
 
   const int br = blockIdx.x;
@@ -120,28 +135,44 @@ int launch(const void* vals, const void* row_ptr, const void* blk_cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_checked(const void* vals, int bitmap, const void* row_ptr,
+                   const void* blk_cols, const void* x, void* y,
+                   int n_block_rows, int bs, void* stream) {
+  if (bs < 32 || bs > 1024 || bs % 32 != 0 || n_block_rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_block_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bitmap ? launch<T, true>(vals, row_ptr, blk_cols, x, y,
+                                  n_block_rows, bs, s)
+                : launch<T, false>(vals, row_ptr, blk_cols, x, y,
+                                   n_block_rows, bs, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // vals: int8 [nb, bs, bs] (bitmap = 0) or int32 [nb, bs/32, bs]
 // (bitmap = 1); row_ptr int32 [n_block_rows + 1]; blk_cols int32 [nb];
-// x f32 [n_cols] (n_cols a multiple of bs, covering every block column)
-// -> y f32 [n_block_rows * bs]. bs is a multiple of 32 in 32..1024. The
-// buffers are 16-byte aligned. Launches on `stream` without synchronising;
-// returns the cudaError_t of the launch (0 = success).
+// x [n_cols] (n_cols a multiple of bs, covering every block column)
+// -> y [n_block_rows * bs], both f32 (bsr_nbr_max_f32_launch) or both
+// int32 (bsr_nbr_max_i32_launch). bs is a multiple of 32 in 32..1024.
+// The buffers are 16-byte aligned. Launches on `stream` without
+// synchronising; returns the cudaError_t of the launch (0 = success).
 int bsr_nbr_max_f32_launch(const void* vals, int bitmap, const void* row_ptr,
                            const void* blk_cols, const void* x, void* y,
                            int n_block_rows, int bs, void* stream) {
-  if (bs < 32 || bs > 1024 || bs % 32 != 0 || n_block_rows < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_block_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bitmap ? launch<float, true>(vals, row_ptr, blk_cols, x, y,
-                                      n_block_rows, bs, s)
-                : launch<float, false>(vals, row_ptr, blk_cols, x, y,
-                                       n_block_rows, bs, s);
+  return launch_checked<float>(vals, bitmap, row_ptr, blk_cols, x, y,
+                               n_block_rows, bs, stream);
+}
+
+int bsr_nbr_max_i32_launch(const void* vals, int bitmap, const void* row_ptr,
+                           const void* blk_cols, const void* x, void* y,
+                           int n_block_rows, int bs, void* stream) {
+  return launch_checked<int32_t>(vals, bitmap, row_ptr, blk_cols, x, y,
+                                 n_block_rows, bs, stream);
 }
 
 const char* bsr_nbr_max_error_string(int code) {

@@ -16,6 +16,10 @@ Port of `distgcn_tpu/ops/spmm.py`:
   (y[i] = max over structural neighbours j of x[j]) run their plain
   PyTorch versions on CPU tensors and the hand-written CUDA kernels
   (`ops/spmm_cuda.py`, `ops/nbr_max_cuda.py`) on CUDA tensors.
+  `spmm_rows` and `nbr_max_rows` are the same dispatch on raw block
+  arrays (the sharded path's panels); the neighbour-max takes an f32 or
+  an int32 payload (the JAX `_bsr_nbr_max_rows` and
+  `_bsr_nbr_max_rows_i32`).
 - `ell_pack` / `ell_spmm`: the ELLPACK gather form (the non-BSR route).
 - `SparseSupport`: the BSR route on a CUDA device, the ELL route on the
   CPU, as the JAX package chooses Pallas on a TPU and XLA elsewhere.
@@ -36,7 +40,8 @@ import torch
 
 from distgcn_tpu_torch.utils.device import resolve_device
 
-NEG_HUGE = -3.0e38     # neighbour-max value of a row with no neighbour
+NEG_HUGE = -3.0e38     # neighbour-max value of a row with no neighbour (f32)
+I32_SENT = -(2 ** 31) + 1   # the same for an int32 payload
 
 
 def pack_bits_blocks(blk: np.ndarray) -> np.ndarray:
@@ -155,6 +160,13 @@ def _block_rows(row_ptr: torch.Tensor) -> torch.Tensor:
 # y = S @ x
 # ---------------------------------------------------------------------------
 
+def _addressed(row_ptr: torch.Tensor, *arrays):
+    """The blocks that row_ptr addresses: a panel of the sharded path pads
+    its block arrays to a common count past ``row_ptr[-1]``."""
+    nb = int(row_ptr[-1])
+    return tuple(a[:nb] for a in arrays)
+
+
 def bsr_spmm_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
                    blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
                    block_size: int, bitmap: bool = False) -> torch.Tensor:
@@ -162,6 +174,7 @@ def bsr_spmm_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
     block. x: [n_cols, F] f32 (n_cols a multiple of bs)."""
     bs = block_size
     f = x.shape[1]
+    blk_vals, blk_cols = _addressed(row_ptr, blk_vals, blk_cols)
     vals = block_values(blk_vals, bs, bitmap)                 # [nb, bs, bs]
     xs = x.reshape(-1, bs, f)[blk_cols.long()]                # [nb, bs, F]
     prod = torch.bmm(vals, xs.to(torch.float32))
@@ -171,13 +184,18 @@ def bsr_spmm_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
     return out.reshape(n_rows, f)
 
 
-def _spmm(blk_vals, row_ptr, blk_cols, x, n_rows, bs, bitmap):
+def spmm_rows(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
+              blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
+              block_size: int, bitmap: bool = False) -> torch.Tensor:
+    """y = S @ x on raw block arrays (the JAX `_bsr_spmm_rows`): the plain
+    version for CPU tensors, the SpMM kernel for CUDA tensors. Blocks past
+    ``row_ptr[-1]`` are never read. x: [n_cols, F] f32."""
     if x.device.type == "cpu":
-        return bsr_spmm_plain(blk_vals, row_ptr, blk_cols, x, n_rows, bs,
-                              bitmap)
+        return bsr_spmm_plain(blk_vals, row_ptr, blk_cols, x, n_rows,
+                              block_size, bitmap)
     from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
-    return bsr_spmm_kernel(blk_vals, row_ptr, blk_cols, x, n_rows, bs,
-                           bitmap)
+    return bsr_spmm_kernel(blk_vals, row_ptr, blk_cols, x, n_rows,
+                           block_size, bitmap)
 
 
 def _pad_rows(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
@@ -197,8 +215,8 @@ def bsr_spmm_rows(s: BsrMatrix, x: torch.Tensor,
     if row_ptr is None:
         row_ptr = bsr_row_ptr(s)
     x = _pad_rows(x, s.n_cols)
-    return _spmm(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
-                 s.block_size, s.bitmap)
+    return spmm_rows(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
+                     s.block_size, s.bitmap)
 
 
 def bsr_spmm(s: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -212,42 +230,67 @@ def bsr_spmm(s: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 # y[i] = max over neighbours j of x[j]
 # ---------------------------------------------------------------------------
 
+def nbr_max_sentinel(dtype: torch.dtype):
+    """The value of a row with no neighbour: `I32_SENT` for an int32
+    payload, `NEG_HUGE` for f32."""
+    if dtype == torch.int32:
+        return I32_SENT
+    if dtype == torch.float32:
+        return NEG_HUGE
+    raise ValueError(f"neighbour-max payloads are f32 or int32, got {dtype}")
+
+
 def bsr_nbr_max_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
                       blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
                       block_size: int, bitmap: bool = False) -> torch.Tensor:
     """Plain PyTorch neighbour-max over int8 or bitmap 0/1 blocks.
-    x: [n_cols] f32. Returns [n_rows] f32, `NEG_HUGE` where a row has no
-    neighbour."""
+    x: [n_cols] f32 or int32. Returns [n_rows] of x's dtype, the
+    sentinel (`nbr_max_sentinel`) where a row has no neighbour. Blocks
+    past ``row_ptr[-1]`` are never read."""
     bs = block_size
+    sent = nbr_max_sentinel(x.dtype)
+    blk_vals, blk_cols = _addressed(row_ptr, blk_vals, blk_cols)
     ind = (unpack_bits(blk_vals, bs) if bitmap
            else blk_vals != 0)                                 # [nb, bs, bs]
     xs = x.reshape(-1, bs)[blk_cols.long()]                    # [nb, bs]
     cand = torch.where(ind, xs[:, None, :],
-                       torch.tensor(NEG_HUGE, dtype=x.dtype, device=x.device))
+                       torch.tensor(sent, dtype=x.dtype, device=x.device))
     bm = cand.amax(dim=-1)                                     # [nb, bs]
-    out = torch.full((n_rows // bs, bs), NEG_HUGE, dtype=x.dtype,
+    out = torch.full((n_rows // bs, bs), sent, dtype=x.dtype,
                      device=x.device)
     rows = _block_rows(row_ptr)[:, None].expand(-1, bs)
     out.scatter_reduce_(0, rows, bm, "amax")
     return out.reshape(n_rows)
 
 
+def nbr_max_rows(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
+                 blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
+                 block_size: int, bitmap: bool = False) -> torch.Tensor:
+    """Neighbour-max on raw block arrays, the JAX `_bsr_nbr_max_rows` (x
+    f32) and `_bsr_nbr_max_rows_i32` (x int32): the plain version for CPU
+    tensors; for CUDA tensors the f32 or the int32 kernel, which launch
+    without synchronising. Blocks past ``row_ptr[-1]`` are never read."""
+    if x.device.type == "cpu":
+        return bsr_nbr_max_plain(blk_vals, row_ptr, blk_cols, x, n_rows,
+                                 block_size, bitmap)
+    from distgcn_tpu_torch.ops import nbr_max_cuda
+    kernel = (nbr_max_cuda.bsr_nbr_max_i32_kernel if x.dtype == torch.int32
+              else nbr_max_cuda.bsr_nbr_max_kernel)
+    return kernel(blk_vals, row_ptr, blk_cols, x, n_rows, block_size, bitmap)
+
+
 def bsr_neighbor_max(s: BsrMatrix, x: torch.Tensor,
                      row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[i] = max over structural neighbours j of x[j], over int8 or bitmap
-    structure blocks. x: [<= n_cols] f32, padded with `NEG_HUGE`. Returns
-    [n_rows] f32 with `NEG_HUGE` on rows with no neighbour (padding rows
-    and empty block-rows included). On CUDA tensors this launches the
-    neighbour-max kernel without synchronising."""
+    structure blocks. x: [<= n_cols] f32 or int32, padded with the
+    sentinel. Returns [n_rows] of x's dtype with the sentinel on rows with
+    no neighbour (padding rows and empty block-rows included). On CUDA
+    tensors this launches a neighbour-max kernel without synchronising."""
     if row_ptr is None:
         row_ptr = bsr_row_ptr(s)
-    x = _pad_rows(x, s.n_cols, NEG_HUGE)
-    if x.device.type == "cpu":
-        return bsr_nbr_max_plain(s.blk_vals, row_ptr, s.blk_cols, x,
-                                 s.n_rows, s.block_size, s.bitmap)
-    from distgcn_tpu_torch.ops.nbr_max_cuda import bsr_nbr_max_kernel
-    return bsr_nbr_max_kernel(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
-                              s.block_size, s.bitmap)
+    x = _pad_rows(x, s.n_cols, nbr_max_sentinel(x.dtype))
+    return nbr_max_rows(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
+                        s.block_size, s.bitmap)
 
 
 # ---------------------------------------------------------------------------

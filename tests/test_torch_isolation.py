@@ -45,7 +45,8 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
                 "ops._build", "sim.device_sim", "utils.config",
                 "utils.device", "utils.serialization", "ops.spmm",
                 "ops.spmm_cuda", "ops.nbr_max_cuda", "ops.cheb_fused",
-                "ops.cheb_fused_cuda", "large"):
+                "ops.cheb_fused_cuda", "large", "parallel.distributed",
+                "parallel.halo", "parallel.large_sharded", "parallel.mesh"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
     assert result["banned"] == []
 

@@ -17,7 +17,8 @@ import torch
 from distgcn_tpu_torch import large
 from distgcn_tpu_torch.ops import cheb_fused, spmm
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
-from distgcn_tpu_torch.ops.nbr_max_cuda import bsr_nbr_max_kernel
+from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
+                                               bsr_nbr_max_kernel)
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
 
 
@@ -71,6 +72,101 @@ def test_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
     has = torch.zeros(b.n_rows, dtype=torch.bool, device=cuda)
     has[: s.shape[0]] = torch.from_numpy(np.diff(s.indptr) > 0).to(cuda)
     assert bool((got[~has] == spmm.NEG_HUGE).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("bitmap", [True, False])
+@pytest.mark.parametrize("bs", [32, 256, 512])
+def test_i32_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
+    """The int32 payload: values past f32's integers (2^24 + 1) up to
+    2^31 - 2, and -1 (a removed node's rank); empty block-rows and padding
+    rows get the int32 sentinel."""
+    s = _pattern(4, **CASES[case])
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits" if bitmap else np.int8,
+                                  device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    rng = np.random.default_rng(bs)
+    x = rng.integers(-1, 2 ** 31 - 1, s.shape[1]).astype(np.int32)
+    special = rng.random(x.size) < 0.5
+    x[special] = rng.choice(np.array([-1, 1 << 24, (1 << 24) + 1,
+                                      2 ** 31 - 2], np.int32), special.sum())
+    x = torch.from_numpy(x).to(cuda)
+    before = bsr_nbr_max_i32_kernel.launches
+    got = spmm.bsr_neighbor_max(b, x, rp)
+    assert bsr_nbr_max_i32_kernel.launches == before + 1
+    assert got.dtype == torch.int32
+    xp = torch.cat([x, x.new_full((b.n_cols - x.shape[0],), spmm.I32_SENT)])
+    want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, xp, b.n_rows,
+                                  bs, bitmap)
+    assert torch.equal(got, want)
+    has = torch.zeros(b.n_rows, dtype=torch.bool, device=cuda)
+    has[: s.shape[0]] = torch.from_numpy(np.diff(s.indptr) > 0).to(cuda)
+    assert bool((got[~has] == spmm.I32_SENT).all())
+    assert bool((got[has] >= -1).all())
+
+
+@pytest.mark.cuda
+def test_i32_nbr_max_kernel_rejects_a_float_payload(cuda):
+    s = _pattern(5, n=256)
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, 256, dtype="bits", device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_nbr_max_i32_kernel(b.blk_vals, rp, b.blk_cols,
+                               torch.zeros(256, device=cuda), 256, 256, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [32, 256])
+def test_sharded_large_solve_on_card_goes_through_the_kernels(cuda, bs,
+                                                              monkeypatch):
+    """A one-rank ring on the card (no process group): the dqn solve
+    equals the single-card exact route (same blocks, same SpMM kernel) and
+    the bias-only model (scores = weights) equals `large.bsr_lgs` and the
+    CPU run; one int32 and one f32 neighbour-max launch per LGS round and
+    one SpMM launch per layer."""
+    from distgcn_tpu_torch.parallel.large_sharded import (
+        make_sharded_large_solve, shard_arrays, shard_large_graph)
+    adj, wts, _ = large.geometric_conflict_graph(4000, avg_degree=24.0,
+                                                 seed=7, order="grid")
+    sg = shard_large_graph(adj, 1, block_size=bs)
+    assert sg.bitmap and sg.separable
+    g = large.build_large_graph(adj, block_size=bs, device=cuda)
+    w = torch.zeros(sg.n_pad)
+    w[: sg.n] = torch.from_numpy(wts)
+    gen = torch.Generator().manual_seed(1)
+    gcn = {f"gc{i + 1}": {"w_0": torch.randn(fi, fo, generator=gen) * 0.3,
+                          "w_1": torch.randn(fi, fo, generator=gen) * 0.3}
+           for i, (fi, fo) in enumerate([(1, 32), (32, 32), (32, 1)])}
+    bias = {"gc1": {"w_0": torch.zeros(1, 1), "w_1": torch.zeros(1, 1),
+                    "bias": torch.ones(1)}}
+    kernels = (bsr_nbr_max_i32_kernel, bsr_nbr_max_kernel, bsr_spmm_kernel)
+
+    def run(tree, predict, dev):
+        a = shard_arrays(sg, device=dev)
+        solve = make_sharded_large_solve(sg, predict=predict, device=dev)
+        before = [k.launches for k in kernels]
+        sel, util = solve(*a[:4], large.params_to_list(tree, device=dev),
+                          w.to(dev), a[4])
+        return sel.cpu(), float(util), [k.launches - b
+                                        for k, b in zip(kernels, before)]
+
+    sel, util, (i32, f32, spmm_n) = run(gcn, "dqn", cuda)
+    assert i32 == f32 > 0 and spmm_n == 3
+    monkeypatch.setenv("DISTGCN_LARGE_EXACT", "1")
+    xsel, xutil, _ = large.make_large_solve(g, predict="dqn")(
+        large.params_to_list(gcn, device=cuda), w.to(cuda))
+    assert torch.equal(sel, xsel.cpu())
+    assert util == pytest.approx(float(xutil), rel=1e-5)
+    sel, util, (i32, f32, spmm_n) = run(bias, "mwis", cuda)
+    bsel, butil, rounds = large.bsr_lgs(g, w.to(cuda), g.mask)
+    assert torch.equal(sel, bsel.cpu())
+    assert i32 == f32 == int(rounds) and spmm_n == 1
+    csel, cutil, counts = run(bias, "mwis", torch.device("cpu"))
+    assert torch.equal(sel, csel) and counts == [0, 0, 0]
+    assert util == pytest.approx(cutil, rel=1e-6)
 
 
 @pytest.mark.cuda
