@@ -37,7 +37,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    `bsr_spmm_rows` and `bsr_spmm`), and the fused layer of a 20-layer
    128-wide ChebGCN (K=1, glorot from a seeded generator), one hidden
    layer and the head (within 2^-6 of the largest |value|, mean relative
-   difference < 1e-3);
+   difference < 1e-3, and two launches bit-equal);
 7. the large-graph main path: `make_large_solve(predict="dqn")` through
    the fused route and the exact route (SpMM kernel), both schedules
    independent and maximal with utilities within 1%; `bsr_lgs` through
@@ -50,7 +50,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    launched every slot;
 9. the large-graph kernels timed at the main path's shapes (CUDA-graph
    replays, L2 flushed) beside the plain version, the bound and a PyTorch
-   library call computing the same function where there is one;
+   library call computing the same function where there is one; beside
+   the fused layer, `exact_layer_ms`: the exact route's layer on the same
+   inputs (SpMM kernel, two f32 matmuls, epilogue), timed the same way;
 10. the sharded giant-graph path at phase 6's width: a one-rank NCCL
    group opened by `parallel.distributed.initialize` from the DISTGCN_*
    environment, the graph sharded by `shard_large_graph(adj, 1,
@@ -103,6 +105,7 @@ from distgcn_tpu_torch.large import (bsr_lgs, build_large_graph,
                                      make_large_solve, params_to_list)
 from distgcn_tpu_torch.models.gcn import (ChebGCN, make_model_from_config,
                                           params_from_jax)
+from distgcn_tpu_torch.models.layers import leaky_relu02
 from distgcn_tpu_torch.ops import _build
 from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
                                               fused_cheb_layer_plain,
@@ -110,7 +113,8 @@ from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
 from distgcn_tpu_torch.ops.lgs import (batched_lgs_plain, ell_lgs,
                                        lgs_ranks)
-from distgcn_tpu_torch.ops.lgs_cuda import batched_lgs_kernel, launch
+from distgcn_tpu_torch.ops.lgs_cuda import (batched_lgs_kernel, launch,
+                                            smem_bytes)
 from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
                                                bsr_nbr_max_kernel)
 from distgcn_tpu_torch.ops.spmm import (I32_SENT, NEG_HUGE, BsrMatrix,
@@ -198,9 +202,9 @@ def phase_build(smi: str) -> None:
             if "Used" in line or "spill" in line:
                 print(f"phase 1: {name}.cu ptxas: {line.strip()}")
     words = (N + 31) // 32
-    smem = (N * (words | 1) + N + 2 * words) * 4
-    print(f"phase 1: lgs dynamic shared memory at N={N}: {smem} bytes per "
-          f"CTA, {words * 32} threads")
+    print(f"phase 1: lgs dynamic shared memory at N={N}: "
+          f"{smem_bytes(N, True)} bytes per CTA, {min(1024, words * 32)} "
+          "threads")
 
 
 def phase_kernel_vs_plain(dev) -> float:
@@ -519,7 +523,10 @@ def phase_large_kernels(dev, L) -> dict:
         p = pad_layer_params(L.plist[li], LARGE_WIDTH)
         args = (ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
                 p["w01"], p["bias"], ind.n_rows, 256, act, dt, True)
-        got = fused_cheb_layer(*args).float()
+        raw = fused_cheb_layer(*args)
+        check(torch.equal(raw, fused_cheb_layer(*args)),
+              f"fused layer {li + 1}: two launches differ")
+        got = raw.float()
         torch.cuda.synchronize()
         want = fused_cheb_layer_plain(*args).float()
         err = float((got - want).abs().max())
@@ -530,8 +537,8 @@ def phase_large_kernels(dev, L) -> dict:
               f"mean rel {rel}")
         worst = max(worst, err)
         print(f"phase 6: fused layer gc{li + 1} ({dt}): max abs diff "
-              f"{err:.3g} <= 2^-6 x {scale:.4g}, mean rel diff {rel:.3g}",
-              flush=True)
+              f"{err:.3g} <= 2^-6 x {scale:.4g}, mean rel diff {rel:.3g}; "
+              "two launches bit-equal", flush=True)
     errs["cheb_fused"] = worst
     return errs
 
@@ -702,11 +709,21 @@ def phase_large_timing(dev, L) -> dict:
             p["bias"], n, 256, 1, torch.bfloat16, True)
     ms = graph_ms(lambda: fused_cheb_layer(*args), 50, flush)
     plain_ms = event_ms(lambda: fused_cheb_layer_plain(*args), 5, flush)
+    # the yardstick: the exact route's layer (SpMM kernel, two f32 matmuls,
+    # epilogue) on the same inputs, timed the same way
+    h32 = h.float()
+    exact_ms = graph_ms(lambda: large_gcn_forward(
+        g, [L.plist[1]], h32, final_act=leaky_relu02, fused=False), 50,
+        flush)
     report("cheb_fused", ms, plain_ms, None,
            bound(words + meta + 2 * n * f * 2 + n * 4 + 2 * f * f * 4 + f * 4,
                  f32_ops=4 * n * f * f, bf16_ops=2 * nnz * f),
            "hidden layer N=65,536 F=128 (no single PyTorch call computes "
            "the layer)")
+    print(f"phase 9: cheb_fused exact_layer_ms {exact_ms:.4f} (the exact "
+          f"route's hidden layer on the same inputs, graph replay, L2 "
+          f"flushed): the fused kernel takes {ms / exact_ms:.2%} of it",
+          flush=True)
     return out
 
 

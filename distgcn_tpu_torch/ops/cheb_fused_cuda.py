@@ -6,7 +6,9 @@ Counterpart of the JAX package's `_fused_layer_kernel`,
 ``act(h@(W0+W1) + b - bf16(r)*bf16((A(r*h))@W1))`` per launch, with the
 A-product and both W-products inside the kernel.
 `ops.cheb_fused.fused_cheb_layer` launches it for CUDA tensors;
-`ops.cheb_fused.fused_cheb_layer_plain` is its plain version.
+`ops.cheb_fused.fused_cheb_layer_plain` is its plain version. The
+A-product runs on the tensor cores over the structure blocks' occupied
+32-column chunks; the W-products are f32 on the CUDA cores.
 
 `fused_cheb_layer_kernel.launches` counts the kernel's launches.
 """
@@ -58,6 +60,11 @@ def fused_cheb_layer_kernel(ind_vals: torch.Tensor, row_ptr: torch.Tensor,
         if t.device != ind_vals.device or not t.is_contiguous():
             raise ValueError(f"fused_cheb_layer_kernel: {name} must be "
                              "contiguous, on the blocks' device")
+    for name, t in (("ind_vals", ind_vals), *((k, v[0]) for k, v in
+                                               shapes.items())):
+        if t.data_ptr() % 16:            # the kernel's cp.async copies
+            raise ValueError(f"fused_cheb_layer_kernel: {name} must be "
+                             "16-byte aligned")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     if act_mode not in (0, 1):
@@ -75,3 +82,27 @@ def fused_cheb_layer_kernel(ind_vals: torch.Tensor, row_ptr: torch.Tensor,
 
 
 fused_cheb_layer_kernel.launches = 0
+
+
+COUNT_DEFINES = ("CHEB_FUSED_COUNT=1",)   # the counting build
+
+
+def read_counts() -> dict:
+    """The counts of a ``CHEB_FUSED_COUNT=1`` build of the kernel since the
+    last read (which zeroes them): the 32-column k-chunks of the tiles'
+    block-rows loaded and skipped, the warps' 16-column MMA steps computed
+    and skipped inside the loaded chunks, and SM clock cycles summed over
+    the CTAs (thread 0 of each) in occupancy scans, in the A-product
+    pipeline, in phase 2 and in the whole CTA, with the largest CTA's
+    cycles. Synchronises."""
+    lib = _build.load("cheb_fused", COUNT_DEFINES)
+    counts = (ctypes.c_ulonglong * 9)()
+    lib.cheb_fused_counts.argtypes = [ctypes.c_void_p]
+    lib.cheb_fused_counts.restype = ctypes.c_int
+    err = lib.cheb_fused_counts(ctypes.addressof(counts))
+    if err:
+        raise RuntimeError(f"cheb_fused_counts failed ({err})")
+    return dict(zip(("chunks_loaded", "chunks_skipped", "steps_computed",
+                     "steps_skipped", "scan_cycles", "pipeline_cycles",
+                     "phase2_cycles", "cta_cycles", "max_cta_cycles"),
+                    counts))

@@ -1,8 +1,10 @@
 """Hand-written CUDA LGS kernel for Hopper (`csrc/lgs.cu`).
 
 Counterpart of `distgcn_tpu/ops/lgs_pallas.py`: one CTA per graph runs the
-whole multi-round solve with the adjacency resident in shared memory as a
-row bitmask, and each graph stops after its own rounds. Ranks come from
+whole multi-round solve over the adjacency packed into a row bitmask, and
+each graph stops after its own rounds. The bitmask lives in shared memory
+while it fits there (`rows_in_smem`, N up to about 1,300); above that the
+wrapper gives the kernel a device-memory scratch for it. Ranks come from
 `ops.lgs.lgs_ranks` before the launch and the utility is a torch sum after
 it — the boundary of `batched_lgs_pallas`. Selections and rounds are
 bit-identical to `ops.lgs.batched_lgs_plain`.
@@ -20,7 +22,26 @@ import torch
 from distgcn_tpu_torch.ops import _build
 from distgcn_tpu_torch.ops.lgs import lgs_ranks
 
-MAX_N = 1024   # one thread per node in one CTA
+SMEM_BYTES = 232448   # a CTA's shared memory on sm_90 (csrc/lgs.cu kMaxSmem)
+
+
+def smem_bytes(n: int, rows: bool) -> int:
+    """csrc/lgs.cu's shared memory for an n-node graph: ranks, remain and
+    win words, int8 states, and the row bitmask when `rows`."""
+    words = (n + 31) // 32
+    small = n + 2 * words + (n + 3) // 4
+    return 4 * (small + (n * (words | 1) if rows else 0))
+
+
+def rows_in_smem(n: int) -> bool:
+    """True iff the kernel keeps an n-node graph's row bitmask in shared
+    memory; above that it reads it from a device-memory scratch."""
+    return smem_bytes(n, True) <= SMEM_BYTES
+
+
+# the largest N whose ranks, states and remain/win words fit shared memory
+MAX_N = next(n for n in range(SMEM_BYTES // 5, 0, -1)
+             if smem_bytes(n, False) <= SMEM_BYTES)
 
 
 def batched_lgs_kernel(adj: torch.Tensor, wts: torch.Tensor,
@@ -73,12 +94,17 @@ def launch(adj: torch.Tensor, ranks: torch.Tensor, mask: torch.Tensor,
     b, n = ranks.shape
     sel = torch.empty((b, n), dtype=torch.int8, device=adj.device)
     rounds = torch.empty((b,), dtype=torch.int32, device=adj.device)
+    # the row bitmasks past shared memory: u32 words in int32 storage
+    scratch = (None if rows_in_smem(n) else
+               torch.empty((b, n, ((n + 31) // 32) | 1), dtype=torch.int32,
+                           device=adj.device))
     launch_fn = _build.bind("lgs", "lgs_launch",
-                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                             + [ctypes.c_void_p])
     with torch.cuda.device(adj.device):
         launch_fn(adj.data_ptr(), ranks.data_ptr(), mask.data_ptr(),
-                  sel.data_ptr(), rounds.data_ptr(), b, n, cap,
+                  sel.data_ptr(), rounds.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), b, n, cap,
                   _build.stream_of(adj))
     batched_lgs_kernel.launches += 1
     return sel, rounds

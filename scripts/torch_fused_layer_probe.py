@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the fused ChebGCN layer kernel's time goes on a CUDA card.
 
-Builds `distgcn_tpu_torch/csrc/cheb_fused.cu` three times through
-`ops/_build.py`: as it is, with ``-DCHEB_FUSED_PHASES=1`` (phase 1 only:
-the scan of the structure blocks and the edge gather) and with
-``-DCHEB_FUSED_PHASES=2`` (phase 2 only: the W-products and the
-epilogue). Each build runs one hidden layer at the large path's shape
+Builds `distgcn_tpu_torch/csrc/cheb_fused.cu` four times through
+`ops/_build.py`, in parallel: as it is, with ``-DCHEB_FUSED_PHASES=1``
+(phase 1 only: the occupancy scan and the tensor-core A-product), with
+``-DCHEB_FUSED_PHASES=2`` (phase 2 only: the f32 W-products and the
+epilogue) and with ``-DCHEB_FUSED_COUNT=1`` (the full layer, counting its
+work). The first three run one hidden layer at the large path's shape
 (N=65,536 geometric conflict graph of average degree 48, bitmap blocks of
-256, F=128) and prints its time from CUDA events (the mean of 50
+256, F=128) and print their times from CUDA events (the mean of 50
 launches, L2 flushed before each). The cut builds compute wrong layers:
-they only split the time.
+they only split the time. The counting build prints how many 32-column
+k-chunks of the tiles' block-rows were loaded and skipped, and how many
+of the warps' 16-column MMA steps were computed: the share of the dense
+work over whole blocks that the skips leave; its output must equal the
+first build's.
 
 Usage, from the repository root on a machine with a card:
     python3 scripts/torch_fused_layer_probe.py
@@ -18,6 +23,7 @@ Usage, from the repository root on a machine with a card:
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -27,11 +33,13 @@ from distgcn_tpu_torch.large import (build_large_graph,  # noqa: E402
                                      geometric_conflict_graph)
 from distgcn_tpu_torch.ops import _build  # noqa: E402
 from distgcn_tpu_torch.ops.cheb_fused import pad_layer_params  # noqa: E402
-from distgcn_tpu_torch.ops.cheb_fused_cuda import ARGTYPES  # noqa: E402
+from distgcn_tpu_torch.ops.cheb_fused_cuda import (  # noqa: E402
+    ARGTYPES, COUNT_DEFINES, read_counts)
 
 F = 128
 VARIANTS = (("full layer", ()),
-            ("phase 1 only (scan + gather)", ("CHEB_FUSED_PHASES=1",)),
+            ("phase 1 only (occupancy scan + tensor-core A-product)",
+             ("CHEB_FUSED_PHASES=1",)),
             ("phase 2 only (W-products + epilogue)", ("CHEB_FUSED_PHASES=2",)))
 
 
@@ -40,6 +48,9 @@ def main() -> int:
         print("no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    with ThreadPoolExecutor() as pool:       # one nvcc per variant
+        list(pool.map(lambda d: _build.build(["cheb_fused"], d),
+                      [d for _, d in VARIANTS] + [COUNT_DEFINES]))
     adj, _, _ = geometric_conflict_graph(65536, avg_degree=48.0, seed=0,
                                          order="grid")
     g = build_large_graph(adj, block_size=512, device=dev)
@@ -78,6 +89,31 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = sum(s.elapsed_time(e) for s, e in times) / len(times)
         print(f"{name}: {ms:.4f} ms")
+    _build.bind("cheb_fused", "cheb_fused_launch", ARGTYPES)(*args)
+    full = out.clone()
+    read_counts()                               # zero the counts
+    _build.bind("cheb_fused", "cheb_fused_launch", ARGTYPES,
+                COUNT_DEFINES)(*args)
+    c = read_counts()
+    if not torch.equal(out, full):
+        print("the counting build's layer differs from the full build's",
+              file=sys.stderr)
+        return 1
+    chunks = c["chunks_loaded"] + c["chunks_skipped"]
+    dense = chunks * 16        # 8 warps x 2 steps of 16 columns per chunk
+    print(f"k-chunks (128 rows x 32 columns): {c['chunks_loaded']} loaded, "
+          f"{c['chunks_skipped']} skipped of {chunks} "
+          f"({c['chunks_loaded'] / chunks:.2%} loaded); warp MMA steps "
+          f"(16 rows x 16 columns): {c['steps_computed']} computed, "
+          f"{c['steps_skipped']} skipped in the loaded chunks, "
+          f"{c['steps_computed'] / dense:.2%} of the {dense} steps over "
+          f"whole blocks")
+    total = c["cta_cycles"]
+    print(f"SM cycles on thread 0 of each CTA (counting build): "
+          f"occupancy scans {c['scan_cycles'] / total:.1%}, A-product "
+          f"pipeline {c['pipeline_cycles'] / total:.1%}, phase 2 "
+          f"{c['phase2_cycles'] / total:.1%} of {total} over the CTAs; "
+          f"the largest CTA {c['max_cta_cycles']} cycles")
     return 0
 
 

@@ -231,6 +231,10 @@ def test_fused_layer_kernel_matches_plain(cuda, bitmap, f):
             ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
             p["w01"], p["bias"], ind.n_rows, ind.block_size, act, dt, bitmap)
         assert fused_cheb_layer_kernel.launches == before + 1
+        assert torch.equal(got, cheb_fused.fused_cheb_layer(
+            ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
+            p["w01"], p["bias"], ind.n_rows, ind.block_size, act, dt,
+            bitmap))                     # deterministic: no float atomics
         want = cheb_fused.fused_cheb_layer_plain(
             ind.blk_vals, g.ind_row_ptr, ind.blk_cols, h, r, p["w1"],
             p["w01"], p["bias"], ind.n_rows, ind.block_size, act, dt, bitmap)
@@ -240,6 +244,79 @@ def test_fused_layer_kernel_matches_plain(cuda, bitmap, f):
         assert float((got - want).abs().max()) <= 2.0 ** -6 * scale
         rel = ((got - want).abs() / (want.abs() + 1e-2)).mean()
         assert float(rel) < 1e-3
+
+
+def _drop_empty_blocks(b):
+    """(blk_vals, row_ptr, blk_cols) of `b` without its all-zero blocks:
+    block-rows with no edge get no block at all (row_ptr[i] ==
+    row_ptr[i + 1])."""
+    keep = b.blk_vals.reshape(b.num_blocks, -1).ne(0).any(dim=1)
+    rows = torch.repeat_interleave(torch.arange(b.n_rows // b.block_size,
+                                                device=keep.device),
+                                   torch.diff(spmm.bsr_row_ptr(b).long()))
+    counts = torch.bincount(rows[keep], minlength=b.n_rows // b.block_size)
+    row_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    return (b.blk_vals[keep].contiguous(), row_ptr,
+            b.blk_cols[keep].contiguous())
+
+
+# structures of the fused layer's card tests: n_rows not a multiple of the
+# kernel's 128-row tile (1056 at bs 32 and 64), and empty block-rows with
+# no block at all; the banded pattern leaves whole 32-column k-chunks empty
+FUSED_CASES = {"odd_rows": dict(n=1056), "empty_block_rows":
+               dict(n=1024, empty=(256, 768))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("bitmap", [True, False])
+@pytest.mark.parametrize("bs", [32, 64, 256])
+def test_fused_layer_kernel_block_sizes(cuda, case, bitmap, bs):
+    """The fused layer over structure blocks of 32, 64 and 256, bitmap and
+    int8, against its plain version (same tolerance as
+    `test_fused_layer_kernel_matches_plain`); two launches bit-equal."""
+    s = _pattern(6, bw=40, **FUSED_CASES[case])
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits" if bitmap else np.int8,
+                                  device=cuda)
+    vals, rp, cols = _drop_empty_blocks(b)
+    if case == "empty_block_rows":
+        assert int((torch.diff(rp) == 0).sum()) >= 512 // bs
+    n, f = b.n_rows, 128
+    gen = torch.Generator().manual_seed(bs)
+    x = torch.randn((n, f), generator=gen).to(cuda).to(torch.bfloat16)
+    r = (torch.rand(n, generator=gen) + 0.1).to(cuda)
+    p = cheb_fused.pad_layer_params(
+        {"w_0": torch.randn((f, f), generator=gen) * f ** -0.5,
+         "w_1": torch.randn((f, f), generator=gen) * f ** -0.5,
+         "bias": torch.randn(f, generator=gen) * 0.1}, f)
+    p = {k: v.to(cuda) for k, v in p.items()}
+    args = (vals, rp, cols, x, r, p["w1"], p["w01"], p["bias"], n, bs, 1,
+            torch.bfloat16, bitmap)
+    before = fused_cheb_layer_kernel.launches
+    got = cheb_fused.fused_cheb_layer(*args)
+    again = cheb_fused.fused_cheb_layer(*args)
+    assert fused_cheb_layer_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    want = cheb_fused.fused_cheb_layer_plain(*args).float()
+    got = got.float()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2.0 ** -6 * scale
+    assert float(((got - want).abs() / (want.abs() + 1e-2)).mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_fused_layer_kernel_rejects_misaligned_operands(cuda):
+    g, h, p = _fused_inputs(cuda, True, 32)
+    ind = g.ind_bsr
+    r = g.r.reshape(-1).contiguous()
+    x = torch.empty(h.numel() + 4, dtype=h.dtype, device=cuda)[4:]
+    x = x.view(h.shape).copy_(h)          # 8 bytes past an allocation
+    with pytest.raises(ValueError, match="aligned"):
+        cheb_fused.fused_cheb_layer(ind.blk_vals, g.ind_row_ptr,
+                                    ind.blk_cols, x, r, p["w1"], p["w01"],
+                                    p["bias"], ind.n_rows, ind.block_size, 1,
+                                    torch.bfloat16, True)
 
 
 @pytest.mark.cuda

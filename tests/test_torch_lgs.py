@@ -19,7 +19,9 @@ from distgcn_tpu.ops.lgs_pallas import batched_lgs_pallas
 from distgcn_tpu.solvers.greedy import local_greedy_search
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.ops import lgs
-from distgcn_tpu_torch.ops.lgs_cuda import MAX_N, batched_lgs_kernel
+from distgcn_tpu_torch.ops.lgs_cuda import (MAX_N, SMEM_BYTES,
+                                            batched_lgs_kernel, rows_in_smem,
+                                            smem_bytes)
 from distgcn_tpu_torch.models.gcn import make_model_from_config
 from distgcn_tpu_torch.sim import device_sim
 from distgcn_tpu_torch.utils.config import Config
@@ -91,6 +93,39 @@ def test_batched_lgs_matches_jax_pallas_and_host(rng, case, max_rounds):
             assert float(util[i]) == pytest.approx(total, rel=1e-6)
 
 
+def test_batched_lgs_past_1024_nodes_matches_jax_and_host(rng):
+    """N past the kernel's old 1024-node limit: the port's `batched_lgs`
+    bit-equal to JAX's XLA `batched_lgs` and to the host
+    `local_greedy_search` (JAX's Pallas interpret run is left out at this
+    size)."""
+    n = 1100
+    adjs = [random_graph(rng, n=int(k), p=20.0 / n) for k in (n, 1037)]
+    wtss = [_weights(rng, a.shape[0], "coarse") for a in adjs]
+    jb = JGraphBatch.from_scipy(adjs, wtss, pad_to=n)
+    tb = GraphBatch.from_scipy(adjs, wtss, pad_to=n, device="cpu")
+    sel, util, rounds = lgs.batched_lgs(tb.adj, tb.wts, tb.mask)
+    jsel, jutil, jrounds = jax_lgs(jb.adj, jb.wts, jb.mask)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    assert int(rounds) == int(jrounds)
+    np.testing.assert_allclose(util.numpy(), np.asarray(jutil), rtol=1e-6)
+    for i, (a, w) in enumerate(zip(adjs, wtss)):
+        mwis, total = local_greedy_search(a, w)
+        assert set(np.flatnonzero(sel[i, :a.shape[0]].numpy() == 1)) == mwis
+        assert float(util[i]) == pytest.approx(total, rel=1e-6)
+
+
+def test_kernel_shared_memory_layout():
+    """MAX_N is the largest N whose ranks, states and remain/win words fit
+    a CTA's shared memory; the row bitmask stays there up to N=1024 (the
+    old one-CTA launch) and moves to the device scratch past ~1,300."""
+    assert smem_bytes(MAX_N, False) <= SMEM_BYTES
+    assert smem_bytes(MAX_N + 1, False) > SMEM_BYTES
+    assert MAX_N > 4096
+    assert rows_in_smem(1) and rows_in_smem(1024) and rows_in_smem(1100)
+    assert not rows_in_smem(1536) and not rows_in_smem(MAX_N)
+    assert smem_bytes(256, True) == 4 * (256 + 2 * 8 + 64 + 256 * 9)
+
+
 def test_batched_greedy_is_lgs():
     assert lgs.batched_greedy is lgs.batched_lgs
 
@@ -113,20 +148,25 @@ def test_kernel_wrapper_rejects_bad_inputs(rng):
         batched_lgs_kernel(tb.adj.float(), tb.wts, tb.mask)
     with pytest.raises(ValueError, match="contiguous"):
         batched_lgs_kernel(tb.adj.transpose(1, 2), tb.wts, tb.mask)
-    n = MAX_N + 1
-    with pytest.raises(ValueError, match="range"):
-        batched_lgs_kernel(torch.zeros((1, n, n), dtype=torch.int8),
-                           torch.ones((1, n)), torch.ones((1, n), dtype=bool))
+    n = MAX_N + 1        # a broadcast view: the range check comes first
+    with pytest.raises(ValueError, match=f"range 1..{MAX_N}"):
+        batched_lgs_kernel(torch.zeros((1, 1, 1), dtype=torch.int8)
+                           .expand(1, n, n), torch.ones((1, n)),
+                           torch.ones((1, n), dtype=bool))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,case,max_rounds", [
     (256, "random", None), (256, "ties", None), (256, "negative", None),
     (256, "random", 1), (100, "random", None), (24, "ties", None),
-    (1, "random", None), (1024, "coarse", None)])
+    (1, "random", None), (1024, "coarse", None),
+    # past 1024 nodes: several nodes per thread; ragged N; from 1536 on the
+    # row bitmask lives in the device-memory scratch
+    (1025, "random", None), (1100, "ties", None), (1536, "negative", None),
+    (2048, "random", 1), (4096, "coarse", None)])
 def test_kernel_matches_plain_on_card(cuda, n, case, max_rounds):
     rng = np.random.default_rng(n)
-    b = 32
+    b = 32 if n <= 1024 else 4
     a = rng.random((b, n, n)) < min(1.0, 20.0 / n)
     a = np.triu(a, 1)
     a = a | a.transpose(0, 2, 1)
