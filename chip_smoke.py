@@ -34,7 +34,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    card: the neighbour-max on bitmap and int8 streams (bit-equal,
    sentinel rows included), the SpMM on the bitmap stream and on f32 value
    blocks of a weighted copy (rtol 2e-5, atol 1e-5, through
-   `bsr_spmm_rows` and `bsr_spmm`), and the fused layer of a 20-layer
+   `bsr_spmm_rows` and `bsr_spmm`), each with two launches bit-equal,
+   and the fused layer of a 20-layer
    128-wide ChebGCN (K=1, glorot from a seeded generator), one hidden
    layer and the head (within 2^-6 of the largest |value|, mean relative
    difference < 1e-3, and two launches bit-equal);
@@ -51,8 +52,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 9. the large-graph kernels timed at the main path's shapes (CUDA-graph
    replays, L2 flushed) beside the plain version, the bound and a PyTorch
    library call computing the same function where there is one; beside
-   the fused layer, `exact_layer_ms`: the exact route's layer on the same
-   inputs (SpMM kernel, two f32 matmuls, epilogue), timed the same way;
+   the SpMM, the share of nonzero bitmap words and the x bytes it reads,
+   and its time on phase 6's f32 value blocks (`f32_values_ms` in the
+   kernels line, with their byte bound); beside the fused layer,
+   `exact_layer_ms`: the exact route's layer on the same inputs (SpMM
+   kernel, two f32 matmuls, epilogue), timed the same way;
 10. the sharded giant-graph path at phase 6's width: a one-rank NCCL
    group opened by `parallel.distributed.initialize` from the DISTGCN_*
    environment, the graph sharded by `shard_large_graph(adj, 1,
@@ -475,17 +479,21 @@ def phase_large_kernels(dev, L) -> dict:
     for kind, b in streams:
         rp = g.ind_row_ptr if b is ind else bsr_row_ptr(b)
         got = bsr_neighbor_max(b, x, rp)
+        again = bsr_neighbor_max(b, x, rp)
         torch.cuda.synchronize()
         want = bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows,
                                  256, b.bitmap)
-        check(torch.equal(got, want), f"neighbour-max ({kind}) differs")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"neighbour-max ({kind}) differs")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"neighbour-max ({kind}): two launches differ")
         sentinel = int((want == NEG_HUGE).sum())
         if "isolated" in kind:
             check(sentinel >= ISOLATED, f"{kind}: {sentinel} sentinel rows")
         worst = max(worst, float((got - want).abs().max()))
         print(f"phase 6: bsr_nbr_max {kind}: {b.num_blocks} blocks, "
-              f"bit-equal to the plain version, {sentinel} sentinel rows",
-              flush=True)
+              f"bit-equal to the plain version, {sentinel} sentinel rows; "
+              "two launches bit-equal", flush=True)
     errs["bsr_nbr_max"] = worst
     # SpMM: the exact route's operand r * y at F=128 on the structure
     # stream, and f32 value blocks (bs 512) of a weighted copy
@@ -496,15 +504,18 @@ def phase_large_kernels(dev, L) -> dict:
     gw = build_large_graph(wadj + wadj.T, block_size=512, device=dev)
     check(not gw.separable and gw.bsr is not None
           and gw.bsr.blk_vals.dtype == torch.float32, "weighted value blocks")
+    L.gw = gw
     worst = 0.0
     for kind, b, rp in (("bitmap", ind, g.ind_row_ptr),
                         ("f32 values", gw.bsr, gw.row_ptr)):
         want = bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, y, b.n_rows,
                               b.block_size, b.bitmap)
+        outs = []
         for route, fn in (("bsr_spmm_rows", lambda: bsr_spmm_rows(b, y, rp)),
                           ("bsr_spmm", lambda: bsr_spmm(b, y))):
             got = fn()
             torch.cuda.synchronize()
+            outs.append(got)
             err = float((got - want).abs().max())
             worst = max(worst, err)
             check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
@@ -512,6 +523,9 @@ def phase_large_kernels(dev, L) -> dict:
             print(f"phase 6: bsr_spmm {kind} ({b.num_blocks} blocks of "
                   f"{b.block_size}) via {route}: max abs diff {err:.3g} "
                   f"(rtol 2e-5, atol 1e-5)", flush=True)
+        check(torch.equal(*outs), f"SpMM {kind}: two launches differ")
+        print(f"phase 6: bsr_spmm {kind}: the two launches bit-equal",
+              flush=True)
     errs["bsr_spmm"] = worst
     # fused layer: one hidden layer and the head on the same bf16 input
     h = torch.randn((g.n_pad, LARGE_WIDTH), generator=gen,
@@ -701,6 +715,26 @@ def phase_large_timing(dev, L) -> dict:
     report("bsr_spmm", ms, plain_ms, lib_ms,
            bound(words + meta + 2 * n * f * 4, f32_ops=2 * nnz * f),
            "bitmap N=65,536 F=128 (library: torch.sparse.mm on a CSR copy)")
+    nz = int(torch.count_nonzero(ind.blk_vals))
+    print(f"phase 9: bsr_spmm bitmap: {nz} of {ind.blk_vals.numel()} words "
+          f"nonzero ({nz / ind.blk_vals.numel():.2%}), "
+          f"{nnz / nz:.2f} edges per nonzero word; the kernel reads x once "
+          f"per nonzero word: {nz * f * 4} bytes (once per edge: "
+          f"{nnz * f * 4}), kernel {ms:.4f} ms", flush=True)
+    # the f32 value stream of phase 6's weighted copy (the value-block
+    # loop): bound = the value blocks, their ids, x and y
+    gw = L.gw
+    vals = gw.bsr.blk_vals.numel() * 4
+    vmeta = (gw.row_ptr.numel() + gw.bsr.blk_cols.numel()) * 4
+    vms = graph_ms(lambda: bsr_spmm_rows(gw.bsr, y, gw.row_ptr), 20, flush)
+    vbnd = bound(vals + vmeta + 2 * n * f * 4, f32_ops=2 * nnz * f)
+    out["bsr_spmm"].update(f32_values_ms=vms,
+                           f32_values_bound_ms=vbnd["bound_ms"])
+    print(f"phase 9: bsr_spmm f32 values ({gw.bsr.num_blocks} blocks of "
+          f"{gw.bsr.block_size}) F=128, L2 flushed: kernel {vms:.4f} ms, "
+          f"bound {vbnd['bound_ms'] * 1e3:.3f} us ({vbnd['bound_by']}: "
+          f"{vals} bytes of values), kernel at "
+          f"{vbnd['bound_ms'] / vms:.2%} of the bound", flush=True)
     # fused hidden layer
     h = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
     r = g.r.reshape(-1).contiguous()

@@ -9,7 +9,7 @@
 //   _nbr_max_row_kernel   (_bsr_nbr_max_rows).
 // On the TPU they differ only in how the blocks are tiled through VMEM;
 // here one kernel covers them. With an int32 payload
-// (bsr_nbr_max_i32_launch), the same template instantiated for int32_t:
+// (bsr_nbr_max_i32_launch), the same templates instantiated for int32_t:
 //   _nbr_max_row_kernel_i32 (_bsr_nbr_max_rows_i32), which carries the
 //   sharded solve's LGS ranks exactly past 2^24 nodes. Payloads are
 //   compared as integers and never pass through float.
@@ -22,21 +22,42 @@
 // empty block-rows included, gets the sentinel: -3.0e38 for f32,
 // -(2^31)+1 for int32.
 //
+// Every row takes its neighbours in one order, blocks in row_ptr order
+// and columns ascending within a block, with the rule m = v > m ? v : m:
+// the first maximum seen wins, so a tie of +0.0 and -0.0 keeps the one in
+// the first column. No atomics; the result is the plain version's, bit for
+// bit (`ops.spmm.bsr_nbr_max_plain` resolves ties the same way).
+//
 // What bounds it on an H100: bytes. At N=65,536 (bs=256, 1,966 bitmap
 // blocks) one pass must read 16.1 MB of words plus x and write y: about
-// 5 us at 3.35 TB/s. The operations (one compare per stored cell) are far
-// below the card's rate.
+// 5 us at 3.35 TB/s. The operations (one compare per edge) are far below
+// the card's rate.
 //
-// What the design does about it: one CTA per block-row, one thread per
-// row. For each block of the row, the CTA stages the block's bitmap words
-// (16-byte loads, read once from device memory) and the block's x segment
-// in shared memory; each thread then scans its row. The 32 threads of a
-// warp share one word row, so every shared-memory read is a broadcast.
-// Each row's maximum is its own thread's: no atomics, no reduction order,
-// so the result is bit-equal to any exact max.
+// Bitmap blocks (every large LGS): one warp per 32-row group (one
+// word-row of a block-row), 8 warps per CTA, no __syncthreads. The warp
+// walks its block-row's blocks in row_ptr order, 8 32-column chunks at a
+// time: lane j loads word j of each chunk, and x of that column only where
+// the word is nonzero (9.6% of the bench graph's words). The words of the
+// group after next and the x values of the next group are in flight while
+// a group is visited. Ballots compact a group's nonzero words and their x
+// into a per-warp list in shared memory, in column order; every lane
+// reads the list (broadcasts, several reads in flight) and lane b takes
+// the value when bit b is set: ~4 instructions per nonzero word instead
+// of 32 shared-memory steps per word, zero words included; the list beat
+// visiting the words through two shuffles each. What holds it at ~4.7x
+// its byte bound on an H100 SXM at 700 W is not split by the
+// measurements: 4, 8 or 16 warps per CTA, groups of 16 chunks, or two
+// warps sharing a group's walk timed the same within the card's noise
+// (PERF.md).
+//
+// int8 blocks keep the first design: one CTA per block-row, one thread
+// per row, the block's x segment staged in shared memory and each thread
+// scanning its row's 16-byte cell vectors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitmap_walk.cuh"
 
 namespace {
 
@@ -60,55 +81,39 @@ __device__ __forceinline__ T take_max(T m, T v) {
   return v > m ? v : m;
 }
 
-template <typename T, bool BITMAP>
-__global__ void nbr_max_kernel(const void* __restrict__ vals,
-                               const int32_t* __restrict__ row_ptr,
-                               const int32_t* __restrict__ blk_cols,
-                               const T* __restrict__ x, T* __restrict__ y,
-                               int bs) {
+// ---------------------------------------------------------------------------
+// int8 blocks: one CTA per block-row, one thread per row
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void nbr_max_int8_kernel(const int8_t* __restrict__ vals,
+                                    const int32_t* __restrict__ row_ptr,
+                                    const int32_t* __restrict__ blk_cols,
+                                    const T* __restrict__ x,
+                                    T* __restrict__ y, int bs) {
   static_assert(sizeof(T) == 4, "f32 and int32 payloads");
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
-  // bs is a multiple of 32, so bs * 4 bytes keep `words` 16-byte aligned
-  // for the uint4 stores below
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + bs * sizeof(T));
 
   const int br = blockIdx.x;
   const int i = threadIdx.x;  // row within the block-row
   const int start = row_ptr[br];
   const int end = row_ptr[br + 1];
-  const int nwords = (bs >> 5) * bs;
-  const uint32_t* my_words = words + (i >> 5) * bs;
-  const int bit = i & 31;
   T m = Payload<T>::sentinel();
 
   for (int k = start; k < end; ++k) {
     const size_t c = static_cast<size_t>(blk_cols[k]);
     __syncthreads();  // every thread is done with the previous block
     xs[i] = x[c * bs + i];
-    if (BITMAP) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          static_cast<const uint32_t*>(vals) + static_cast<size_t>(k) * nwords);
-      uint4* dst = reinterpret_cast<uint4*>(words);
-      for (int q = i; q < (nwords >> 2); q += bs) dst[q] = src[q];
-    }
     __syncthreads();
-    if (BITMAP) {
-#pragma unroll 8
-      for (int j = 0; j < bs; ++j) {
-        if ((my_words[j] >> bit) & 1u) m = take_max(m, xs[j]);
-      }
-    } else {
-      const int8_t* row = static_cast<const int8_t*>(vals) +
-                          (static_cast<size_t>(k) * bs + i) * bs;
-      for (int j = 0; j < bs; j += 16) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row + j);
-        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+    const int8_t* row = vals + (static_cast<size_t>(k) * bs + i) * bs;
+    for (int j = 0; j < bs; j += 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + j);
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          if ((w4[q >> 2] >> (8 * (q & 3))) & 0xffu) {
-            m = take_max(m, xs[j + q]);
-          }
+      for (int q = 0; q < 16; ++q) {
+        if ((w4[q >> 2] >> (8 * (q & 3))) & 0xffu) {
+          m = take_max(m, xs[j + q]);
         }
       }
     }
@@ -116,23 +121,86 @@ __global__ void nbr_max_kernel(const void* __restrict__ vals,
   y[static_cast<size_t>(br) * bs + i] = m;
 }
 
-template <typename T, bool BITMAP>
-int launch(const void* vals, const void* row_ptr, const void* blk_cols,
-           const void* x, void* y, int n_block_rows, int bs,
-           cudaStream_t stream) {
-  const size_t smem =
-      bs * sizeof(T) + (BITMAP ? static_cast<size_t>(bs / 32) * bs * 4 : 0);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nbr_max_kernel<T, BITMAP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// ---------------------------------------------------------------------------
+// bitmap blocks: one warp per 32-row group
+// ---------------------------------------------------------------------------
+
+using bitmap_walk::kGroup;
+using bitmap_walk::load_group;
+using bitmap_walk::Walk;
+
+constexpr int kWarps = 8;   // warps per CTA of the bitmap kernel
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    nbr_max_bitmap_kernel(const uint32_t* __restrict__ words,
+                          const int32_t* __restrict__ row_ptr,
+                          const int32_t* __restrict__ blk_cols,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int n_groups, int bs) {
+  static_assert(sizeof(T) == 4, "f32 and int32 payloads");
+  __shared__ uint32_t list_w[kWarps][kGroup * 32];
+  __shared__ T list_x[kWarps][kGroup * 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = blockIdx.x * kWarps + warp;
+  if (grp >= n_groups) return;  // whole warp
+  uint32_t* lw = list_w[warp];
+  T* lx = list_x[warp];
+  const int nch = bs >> 5;
+  const int br = grp / nch;
+  const int wr = grp - br * nch;
+  const int start = row_ptr[br];
+  Walk p{start, 0, (row_ptr[br + 1] - start) * nch};
+  T m = Payload<T>::sentinel();
+
+  // three groups in flight: the one visited (words and x), the next
+  // (words, then x), the one after (words)
+  uint32_t wc[kGroup], wn[kGroup], wnn[kGroup];
+  int cc[kGroup], cn[kGroup], cnn[kGroup];
+  T xc[kGroup], xn[kGroup];
+  bool have = p.left > 0;
+  load_group(words, blk_cols, nch, wr, bs, lane, p, wc, cc);
+  bool have_next = p.left > 0;
+  load_group(words, blk_cols, nch, wr, bs, lane, p, wn, cn);
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) xc[t] = wc[t] != 0u ? x[cc[t]] : T(0);
+  while (have) {
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) xn[t] = wn[t] != 0u ? x[cn[t]] : T(0);
+    const bool have_nn = p.left > 0;
+    load_group(words, blk_cols, nch, wr, bs, lane, p, wnn, cnn);
+    // list the group's nonzero words and their x, in column order
+    int n = 0;
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      const uint32_t mask = __ballot_sync(0xffffffffu, wc[t] != 0u);
+      if (wc[t] != 0u) {
+        const int at = n + __popc(mask & ((1u << lane) - 1u));
+        lw[at] = wc[t];
+        lx[at] = xc[t];
+      }
+      n += __popc(mask);
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const uint32_t w = lw[i];
+      const T v = lx[i];
+      if ((w >> lane) & 1u) m = take_max(m, v);
+    }
+    __syncwarp();  // the list is rewritten by the next group
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      wc[t] = wn[t];
+      xc[t] = xn[t];
+      wn[t] = wnn[t];
+      cn[t] = cnn[t];
+    }
+    have = have_next;
+    have_next = have_nn;
   }
-  nbr_max_kernel<T, BITMAP><<<n_block_rows, bs, smem, stream>>>(
-      vals, static_cast<const int32_t*>(row_ptr),
-      static_cast<const int32_t*>(blk_cols), static_cast<const T*>(x),
-      static_cast<T*>(y), bs);
-  return static_cast<int>(cudaGetLastError());
+  y[static_cast<size_t>(grp) * 32 + lane] = m;
 }
 
 template <typename T>
@@ -144,10 +212,20 @@ int launch_checked(const void* vals, int bitmap, const void* row_ptr,
   }
   if (n_block_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bitmap ? launch<T, true>(vals, row_ptr, blk_cols, x, y,
-                                  n_block_rows, bs, s)
-                : launch<T, false>(vals, row_ptr, blk_cols, x, y,
-                                   n_block_rows, bs, s);
+  const int32_t* rp = static_cast<const int32_t*>(row_ptr);
+  const int32_t* cols = static_cast<const int32_t*>(blk_cols);
+  if (bitmap) {
+    const int n_groups = n_block_rows * (bs / 32);
+    nbr_max_bitmap_kernel<T><<<(n_groups + kWarps - 1) / kWarps,
+                               kWarps * 32, 0, s>>>(
+        static_cast<const uint32_t*>(vals), rp, cols,
+        static_cast<const T*>(x), static_cast<T*>(y), n_groups, bs);
+  } else {
+    nbr_max_int8_kernel<T><<<n_block_rows, bs, bs * sizeof(T), s>>>(
+        static_cast<const int8_t*>(vals), rp, cols, static_cast<const T*>(x),
+        static_cast<T*>(y), bs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -159,7 +237,7 @@ extern "C" {
 // x [n_cols] (n_cols a multiple of bs, covering every block column)
 // -> y [n_block_rows * bs], both f32 (bsr_nbr_max_f32_launch) or both
 // int32 (bsr_nbr_max_i32_launch). bs is a multiple of 32 in 32..1024.
-// The buffers are 16-byte aligned. Launches on `stream` without
+// The int8 blocks are 16-byte aligned. Launches on `stream` without
 // synchronising; returns the cudaError_t of the launch (0 = success).
 int bsr_nbr_max_f32_launch(const void* vals, int bitmap, const void* row_ptr,
                            const void* blk_cols, const void* x, void* y,

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with nvcc for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (gitignored) and loaded with
-ctypes. The library's file name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded. `build`
-starts one nvcc per source, all together, and keeps each ``-Xptxas -v``
-report (registers, shared memory, spills) in `BUILD_LOGS`. `bind` gives a
+ctypes. The library's file name carries a hash of the source, the headers
+of ``csrc/`` (``*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. `build` starts one nvcc per
+source, all together, and keeps each ``-Xptxas -v`` report (registers,
+shared memory, spills) in `BUILD_LOGS`. `bind` gives a
 source's launch function with its argument types, raising on a non-zero
 launch status. ``defines`` (``NAME=VALUE`` strings, passed as ``-D``)
 build a variant of a source into a library of its own.
@@ -51,6 +52,7 @@ def _flags(defines: Tuple[str, ...]) -> list:
 
 def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -2,8 +2,11 @@
 (`csrc/bsr_nbr_max.cu`).
 
 y[i] = max over j with S[i, j] != 0 of x[j] over int8 or bitmap 0/1
-blocks, the sentinel on rows with no neighbour. One CTA per block-row, one
-thread per row: bit-equal to `ops.spmm.bsr_nbr_max_plain`. Two payloads,
+blocks, the sentinel on rows with no neighbour. Bitmap blocks: one warp
+per 32-row group that visits only the nonzero words; int8 blocks: one CTA
+per block-row, one thread per row. Each row takes its neighbours in
+row_ptr then column order, the first of equal maxima winning: bit-equal
+to `ops.spmm.bsr_nbr_max_plain`, +0.0 / -0.0 ties included. Two payloads,
 one template:
 
 - `bsr_nbr_max_kernel`, x f32, sentinel `ops.spmm.NEG_HUGE`: the JAX

@@ -246,21 +246,34 @@ def bsr_nbr_max_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
     """Plain PyTorch neighbour-max over int8 or bitmap 0/1 blocks.
     x: [n_cols] f32 or int32. Returns [n_rows] of x's dtype, the
     sentinel (`nbr_max_sentinel`) where a row has no neighbour. Blocks
-    past ``row_ptr[-1]`` are never read."""
+    past ``row_ptr[-1]`` are never read. Of equal maxima (+0.0 and -0.0)
+    a row keeps the first in its blocks' row_ptr order, then in column
+    order, as the kernels do."""
     bs = block_size
     sent = nbr_max_sentinel(x.dtype)
     blk_vals, blk_cols = _addressed(row_ptr, blk_vals, blk_cols)
+    out = torch.full((n_rows // bs, bs), sent, dtype=x.dtype,
+                     device=x.device)
+    nb = blk_cols.shape[0]
+    if nb == 0:
+        return out.reshape(n_rows)
     ind = (unpack_bits(blk_vals, bs) if bitmap
            else blk_vals != 0)                                 # [nb, bs, bs]
     xs = x.reshape(-1, bs)[blk_cols.long()]                    # [nb, bs]
     cand = torch.where(ind, xs[:, None, :],
                        torch.tensor(sent, dtype=x.dtype, device=x.device))
-    bm = cand.amax(dim=-1)                                     # [nb, bs]
-    out = torch.full((n_rows // bs, bs), sent, dtype=x.dtype,
-                     device=x.device)
-    rows = _block_rows(row_ptr)[:, None].expand(-1, bs)
+    # argmax gives the first maximal column; the gather keeps its sign
+    bm = cand.gather(-1, cand.argmax(dim=-1, keepdim=True))[..., 0]
+    rows = _block_rows(row_ptr)[:, None].expand(-1, bs)        # [nb, bs]
     out.scatter_reduce_(0, rows, bm, "amax")
-    return out.reshape(n_rows)
+    # the first block whose maximum equals the row's
+    order = torch.arange(nb, device=x.device)[:, None].expand(-1, bs)
+    first = torch.full_like(out, nb, dtype=torch.int64)
+    first.scatter_reduce_(0, rows, torch.where(bm == out.gather(0, rows),
+                                               order, nb), "amin")
+    lane = torch.arange(bs, device=x.device)[None, :].expand_as(first)
+    return torch.where(first < nb, bm[first.clamp(max=nb - 1), lane],
+                       out).reshape(n_rows)
 
 
 def nbr_max_rows(blk_vals: torch.Tensor, row_ptr: torch.Tensor,

@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's `_spmm_row_kernel` and `_spmm_kernel`
 (`distgcn_tpu/ops/spmm.py`): y = S @ x with f32 accumulation over f32 or
-bf16 value blocks, int8 structure blocks or bitmap structure blocks; one
-warp per output row. `ops.spmm.bsr_spmm_rows` and `ops.spmm.bsr_spmm`
-launch it for CUDA tensors; `ops.spmm.bsr_spmm_plain` is its plain
-version.
+bf16 value blocks, int8 structure blocks or bitmap structure blocks.
+Bitmap blocks: one warp per 32-row group and feature slice, x read once
+per nonzero bitmap word; value and int8 blocks: one warp per output row.
+Deterministic (no atomics). `ops.spmm.bsr_spmm_rows` and
+`ops.spmm.bsr_spmm` launch it for CUDA tensors; `ops.spmm.bsr_spmm_plain`
+is its plain version.
 
 `bsr_spmm_kernel.launches` counts the kernel's launches.
 """

@@ -7,6 +7,7 @@ JAX package by `tests/test_torch_spmm.py`, `test_torch_cheb_fused.py` and
 `test_torch_large.py` on the CPU. Tolerances: neighbour-max bit-equal;
 SpMM rtol 2e-5 / atol 1e-5 (`tests/test_spmm.py`); fused layer within two
 bf16 ulps at the layer's scale and a mean relative difference < 1e-3.
+Every kernel is deterministic: two launches are bit-equal.
 """
 
 import numpy as np
@@ -29,18 +30,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pattern(seed, n, m=None, empty=None, bw=160, deg=8):
+def _pattern(seed, n, m=None, empty=None, span=None, dense=None, bw=160,
+             deg=8):
     """Banded random pattern, values in [0.1, 1.1); `empty` a row range
-    with no entries (an empty block-row), ragged n allowed."""
+    with no entries (an empty block-row), `span` a row with an entry in
+    every 7th column (every 32-column chunk of every block of its
+    block-row), `dense` a count d of rows and columns 0..d-1 with every
+    cell set (every bitmap word of their 32-row groups full), ragged n
+    allowed."""
     rng = np.random.default_rng(seed)
     m = n if m is None else m
     rows = rng.integers(0, n, n * deg)
     cols = (rows + rng.integers(-bw, bw, n * deg)) % m
     s = sp.coo_matrix((rng.random(n * deg).astype(np.float32) + 0.1,
                        (rows, cols)), shape=(n, m)).tocsr()
-    if empty is not None:
+    if empty is not None or span is not None or dense is not None:
         s = s.tolil()
-        s[empty[0]:empty[1], :] = 0
+        if empty is not None:
+            s[empty[0]:empty[1], :] = 0
+        if span is not None:
+            s[span, ::7] = 0.5
+        if dense is not None:
+            s[:dense, :dense] = 0.5
         s = s.tocsr()
         s.eliminate_zeros()
     return s
@@ -48,13 +59,20 @@ def _pattern(seed, n, m=None, empty=None, bw=160, deg=8):
 
 CASES = {"ragged": dict(n=1000), "empty_block_row": dict(n=1024,
                                                          empty=(256, 512)),
-         "rectangular": dict(n=512, m=1024)}
+         "rectangular": dict(n=512, m=1024),
+         "spanning_row": dict(n=1024, span=37),
+         "dense_block": dict(n=1024, dense=256)}
+
+
+def _bits(t):
+    """A payload's bit pattern: +0.0 and -0.0 differ."""
+    return t.view(torch.int32)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("bitmap,bs", [(True, 256), (True, 64),
-                                       (False, 128)])
+                                       (True, 1024), (False, 128)])
 def test_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
     s = _pattern(1, **CASES[case])
     s.data[:] = 1.0
@@ -66,9 +84,12 @@ def test_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
     before = bsr_nbr_max_kernel.launches
     got = spmm.bsr_neighbor_max(b, x, rp)
     assert bsr_nbr_max_kernel.launches == before + 1
+    again = spmm.bsr_neighbor_max(b, x, rp)
+    assert bsr_nbr_max_kernel.launches == before + 2
+    assert torch.equal(_bits(got), _bits(again))
     want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows,
                                   bs, bitmap)
-    assert torch.equal(got, want)
+    assert torch.equal(_bits(got), _bits(want))
     has = torch.zeros(b.n_rows, dtype=torch.bool, device=cuda)
     has[: s.shape[0]] = torch.from_numpy(np.diff(s.indptr) > 0).to(cuda)
     assert bool((got[~has] == spmm.NEG_HUGE).all())
@@ -96,6 +117,8 @@ def test_i32_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
     before = bsr_nbr_max_i32_kernel.launches
     got = spmm.bsr_neighbor_max(b, x, rp)
     assert bsr_nbr_max_i32_kernel.launches == before + 1
+    assert torch.equal(got, spmm.bsr_neighbor_max(b, x, rp))
+    assert bsr_nbr_max_i32_kernel.launches == before + 2
     assert got.dtype == torch.int32
     xp = torch.cat([x, x.new_full((b.n_cols - x.shape[0],), spmm.I32_SENT)])
     want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, xp, b.n_rows,
@@ -105,6 +128,62 @@ def test_i32_nbr_max_kernel_bit_equal_to_plain(cuda, case, bitmap, bs):
     has[: s.shape[0]] = torch.from_numpy(np.diff(s.indptr) > 0).to(cuda)
     assert bool((got[~has] == spmm.I32_SENT).all())
     assert bool((got[has] >= -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [True, False])
+@pytest.mark.parametrize("bs", [32, 256, 1024])
+def test_nbr_max_kernel_signed_zero_ties(cuda, bitmap, bs):
+    """A payload of +0.0, -0.0 and -1.0: most rows tie at zero, and each
+    keeps the first zero in its blocks' order, then its columns' order,
+    bit for bit as the plain version does."""
+    s = _pattern(7, n=2048, bw=300)
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits" if bitmap else np.int8,
+                                  device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    rng = np.random.default_rng(bs)
+    x = rng.choice(np.array([0.0, -0.0, -1.0], np.float32), b.n_cols)
+    x = torch.from_numpy(x).to(cuda)
+    got = spmm.bsr_neighbor_max(b, x, rp)
+    want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows,
+                                  bs, bitmap)
+    assert torch.equal(_bits(got), _bits(want))
+    zero = got == 0
+    assert bool(torch.signbit(got[zero]).any())
+    assert bool((~torch.signbit(got[zero])).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [64, 256])
+def test_kernels_never_read_blocks_past_row_ptr(cuda, bs):
+    """A sharded panel pads its block arrays past row_ptr[-1]: padding
+    blocks of all-ones words at block column 0 change no result of the
+    bitmap neighbour-max (f32 and int32) or SpMM."""
+    s = _pattern(8, n=1024)
+    s.data[:] = 1.0
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits", device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    vals = torch.cat([b.blk_vals, torch.full((4, bs // 32, bs), -1,
+                                             dtype=torch.int32,
+                                             device=cuda)])
+    cols = torch.cat([b.blk_cols, b.blk_cols.new_zeros(4)])
+    gen = torch.Generator().manual_seed(bs)
+    xf = torch.randn(b.n_cols, generator=gen).to(cuda) + 10.0
+    xi = torch.randint(0, 2 ** 31 - 1, (b.n_cols,), generator=gen,
+                       dtype=torch.int32).to(cuda)
+    for x in (xf, xi):
+        got = spmm.nbr_max_rows(vals, rp, cols, x, b.n_rows, bs, True)
+        want = spmm.bsr_nbr_max_plain(b.blk_vals, rp, b.blk_cols, x,
+                                      b.n_rows, bs, True)
+        assert torch.equal(_bits(got), _bits(want))
+    x2 = torch.rand((b.n_cols, 128), generator=gen).to(cuda)
+    got = spmm.spmm_rows(vals, rp, cols, x2, b.n_rows, bs, True)
+    assert torch.equal(got, spmm.spmm_rows(b.blk_vals, rp, b.blk_cols, x2,
+                                           b.n_rows, bs, True))
+    want = spmm.bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, x2, b.n_rows, bs,
+                               True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -172,9 +251,13 @@ def test_sharded_large_solve_on_card_goes_through_the_kernels(cuda, bs,
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("kind,bs", [("f32", 128), ("bf16", 64),
-                                     ("int8", 128), ("bits", 256)])
-@pytest.mark.parametrize("f", [1, 24, 128, 160])
+                                     ("int8", 128), ("bits", 32),
+                                     ("bits", 64), ("bits", 256),
+                                     ("bits", 512)])
+@pytest.mark.parametrize("f", [1, 6, 24, 128, 160])
 def test_spmm_kernel_matches_plain(cuda, case, kind, bs, f):
+    """Every kind against its plain version; F of 1, 6 and 24 take the
+    bitmap kernel's 1, 2 and 4 features per lane."""
     s = _pattern(2, **CASES[case])
     if kind in ("int8", "bits"):
         s.data[:] = 1.0
@@ -186,15 +269,20 @@ def test_spmm_kernel_matches_plain(cuda, case, kind, bs, f):
     x = x.to(cuda)
     before = bsr_spmm_kernel.launches
     got = spmm.bsr_spmm_rows(b, x, rp)
+    assert bsr_spmm_kernel.launches == before + 1
     got_grid = spmm.bsr_spmm(b, x)
     assert bsr_spmm_kernel.launches == before + 2
     xp = torch.cat([x, x.new_zeros((b.n_cols - s.shape[1], f))])
     want = spmm.bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, xp, b.n_rows, bs,
                                b.bitmap)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
-    assert torch.equal(got, got_grid)
+    assert torch.equal(got, got_grid)          # two launches bit-equal
     if "empty" in case:
         assert not got[256:512].any()
+    if case == "spanning_row":                 # every chunk of its row
+        assert int(np.diff(s.indptr)[37]) >= s.shape[1] // 7
+    if case == "dense_block":                  # 256 full words per group
+        assert (np.diff(s.indptr)[:256] >= 256).all()
 
 
 def _fused_inputs(cuda, bitmap, f, seed=3):

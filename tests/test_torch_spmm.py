@@ -142,6 +142,64 @@ def test_neighbor_max_bit_equal_to_jax(case, bitmap):
     assert (got[~has] == np.float32(T.NEG_HUGE)).all() and (~has).any()
 
 
+@pytest.mark.parametrize("bitmap", [False, True])
+@pytest.mark.parametrize("bs", [32, 128])
+def test_neighbor_max_signed_zero_ties_take_the_first(bitmap, bs):
+    """A payload of +0.0, -0.0 and -1.0: of equal maxima a row keeps the
+    first in column order (blocks in row_ptr order, columns ascending),
+    bit for bit, the rule of the CUDA kernels; the values equal JAX's (the
+    sign of JAX's zero is its reduction's)."""
+    rng = np.random.default_rng(5)
+    s = _structure(_banded(rng, n=640, bw=200))
+    s.sort_indices()
+    tb = T.BsrMatrix.from_scipy(s, bs, dtype="bits" if bitmap else np.int8,
+                                device="cpu")
+    x = rng.choice(np.array([0.0, -0.0, -1.0], np.float32), s.shape[1])
+    got = T.bsr_neighbor_max(tb, torch.from_numpy(x)).numpy()
+    want = np.full(tb.n_rows, np.float32(T.NEG_HUGE))
+    for i in range(s.shape[0]):
+        for j in s.indices[s.indptr[i]:s.indptr[i + 1]]:
+            if x[j] > want[i]:
+                want[i] = x[j]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    zero = got == 0
+    assert np.signbit(got[zero]).any() and (~np.signbit(got[zero])).any()
+    if bs == 128:
+        jb = J.BsrMatrix.from_scipy(s, 128, dtype=np.int8)
+        xj = jnp.asarray(np.concatenate(
+            [x, np.full(jb.n_cols - x.size, J._NEG_HUGE, np.float32)]))
+        rows = np.asarray(J._bsr_nbr_max_rows(
+            jb.blk_vals, J.bsr_row_ptr(jb), jb.blk_cols, xj, jb.n_rows, 128,
+            interpret=True))
+        np.testing.assert_array_equal(got, rows)
+
+
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_plain_versions_never_read_blocks_past_row_ptr(bitmap):
+    """A sharded panel pads its block arrays past row_ptr[-1]: all-ones
+    padding blocks change neither plain version's result."""
+    rng = np.random.default_rng(6)
+    s = _structure(_banded(rng, n=512))
+    tb = T.BsrMatrix.from_scipy(s, 128, dtype="bits" if bitmap else np.int8,
+                                device="cpu")
+    rp = T.bsr_row_ptr(tb)
+    pad = torch.full((3,) + tuple(tb.blk_vals.shape[1:]), -1,
+                     dtype=tb.blk_vals.dtype)
+    vals = torch.cat([tb.blk_vals, pad])
+    cols = torch.cat([tb.blk_cols, tb.blk_cols.new_zeros(3)])
+    x = torch.from_numpy(rng.standard_normal(512).astype(np.float32)) + 10
+    xi = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, 512).astype(np.int32))
+    for payload in (x, xi):
+        np.testing.assert_array_equal(
+            T.nbr_max_rows(vals, rp, cols, payload, 512, 128, bitmap),
+            T.bsr_nbr_max_plain(tb.blk_vals, rp, tb.blk_cols, payload, 512,
+                                128, bitmap))
+    x2 = torch.from_numpy(rng.random((512, 8)).astype(np.float32))
+    np.testing.assert_array_equal(
+        T.spmm_rows(vals, rp, cols, x2, 512, 128, bitmap),
+        T.bsr_spmm_plain(tb.blk_vals, rp, tb.blk_cols, x2, 512, 128, bitmap))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "bits"])
 def test_spmm_matches_jax_and_scipy(case, kind):
