@@ -9,11 +9,14 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. card details, then the build of every kernel in
    `distgcn_tpu_torch/csrc/` with nvcc (build time, registers, shared
    memory);
-2. the LGS kernel against its plain PyTorch version at B=128, N=256 on
-   seeded random graphs (density ~20/n): random weights, engineered ties,
-   negative weights, max_rounds=1, and a ragged N=100. Selections must be
-   bit-equal and the kernel's largest per-graph round count must equal the
-   plain round count;
+2. the LGS kernel (weights in: it ranks them itself) against its plain
+   PyTorch version, on the card and on the CPU, at B=128, N=256 on seeded
+   random graphs (density ~20/n): random weights, engineered ties,
+   negative weights, max_rounds=1, a ragged N=100, weights with exact
+   +0.0, -0.0 and NaN, all-equal weights (padding included) and bfloat16
+   weights. Selections must be bit-equal, the kernel's largest per-graph
+   round count must equal the plain round count, and the utility must be
+   within rtol 1e-6 (one unit in the last place in bfloat16);
 3. the solve pipeline with the repo's ERGDPG2 20-layer c32 checkpoint
    (gcn2_dqn) on that batch in f32: every schedule independent and
    maximal, GCN scores equal to the CPU path's on 8 graphs, and the mean
@@ -25,8 +28,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    Per-slot ms and graphs/s come from the marginal between T=100 and T=500
    episodes (host clock after `torch.cuda.synchronize()`);
 5. kernel timings at B=128, N=256 with CUDA events around CUDA-graph
-   replays (L2 flushed between launches), beside the plain version's and
-   the memory bound;
+   replays (L2 flushed between launches): `batched_lgs_kernel` (f32 and
+   bf16 weights), the bare launch, `lgs_ranks` alone as a yardstick,
+   beside the plain version's time and the memory bound; the CUDA kernels
+   one `batched_lgs_kernel` call enqueues (torch.profiler; must be 1) are
+   counted after phase 11, since a profiler session slows the host's
+   launches after it;
 6. the large-graph path at `bench.py`'s size: the geometric conflict
    graph with N=65,536 and average degree 48 in serpentine order,
    `build_large_graph(block_size=512)` (bitmap structure blocks of
@@ -99,6 +106,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
 
 from distgcn_tpu_torch.agents import build_state_arrays
 from distgcn_tpu_torch.core.graph import GraphBatch
@@ -117,7 +125,8 @@ from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
 from distgcn_tpu_torch.ops.lgs import (batched_lgs_plain, ell_lgs,
                                        lgs_ranks)
-from distgcn_tpu_torch.ops.lgs_cuda import (batched_lgs_kernel, launch,
+from distgcn_tpu_torch.ops.lgs_cuda import (batched_lgs_kernel,
+                                            block_threads, launch,
                                             smem_bytes)
 from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
                                                bsr_nbr_max_kernel)
@@ -163,8 +172,12 @@ def graphs(rng, b, n_lo, n_hi, weights="random"):
         a = np.triu(rng.random((n, n)) < min(1.0, 20.0 / n), 1)
         adjs.append(sp.csr_matrix((a | a.T).astype(np.float32)))
         w = rng.random(n)
-        wtss.append({"random": w, "ties": np.ones(n),
-                     "negative": w - 0.5}[weights])
+        if weights == "zeros_nan":        # exact +0.0, -0.0 and NaN
+            w[rng.random(n) < 0.2] = 0.0
+            w[rng.random(n) < 0.2] = -0.0
+            w[rng.random(n) < 0.1] = np.nan
+        wtss.append({"ties": np.ones(n), "negative": w - 0.5}.get(weights,
+                                                                   w))
     return adjs, wtss
 
 
@@ -205,36 +218,56 @@ def phase_build(smi: str) -> None:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"phase 1: {name}.cu ptxas: {line.strip()}")
-    words = (N + 31) // 32
     print(f"phase 1: lgs dynamic shared memory at N={N}: "
-          f"{smem_bytes(N, True)} bytes per CTA, {min(1024, words * 32)} "
+          f"{smem_bytes(N, True)} bytes per CTA, {block_threads(N)} "
           "threads")
 
 
 def phase_kernel_vs_plain(dev) -> float:
     rng = np.random.default_rng(0)
+    # (weights, N, max_rounds); "equal": every weight 0.5, padding
+    # included, so the ids decide every tie; "bf16": the random weights in
+    # bfloat16, widened in the kernel
     cases = [("random", N, None), ("ties", N, None), ("negative", N, None),
-             ("random", N, 1), ("random", 100, None)]
+             ("random", N, 1), ("random", 100, None),
+             ("zeros_nan", N, None), ("equal", N, None), ("bf16", N, None)]
     worst = 0.0
     for weights, n, cap in cases:
         adjs, wtss = graphs(rng, B, min(N_MIN, n) // 2, n, weights)
         gb = GraphBatch.from_scipy(adjs, wtss, pad_to=n, device=dev)
-        sel, util, rounds = batched_lgs_kernel(gb.adj, gb.wts, gb.mask, cap)
+        wts = {"equal": torch.full_like(gb.wts, 0.5),
+               "bf16": gb.wts.bfloat16()}.get(weights, gb.wts)
+        sel, util, rounds = batched_lgs_kernel(gb.adj, wts, gb.mask, cap)
         torch.cuda.synchronize()
-        psel, putil, prounds = batched_lgs_plain(gb.adj, gb.wts, gb.mask,
-                                                 cap)
+        # the plain version on the card, and on the CPU (its order of
+        # signed zeros and NaN is the one JAX's is held to)
+        psel, putil, prounds = batched_lgs_plain(gb.adj, wts, gb.mask, cap)
+        csel, cutil, crounds = batched_lgs_plain(gb.adj.cpu(), wts.cpu(),
+                                                 gb.mask.cpu(), cap)
         torch.cuda.synchronize()
         err = float((sel.float() - psel.float()).abs().max())
         worst = max(worst, err)
-        check(torch.equal(sel, psel), f"sel differs ({weights}, N={n}, "
-              f"max_rounds={cap})")
-        check(int(rounds.max()) == int(prounds),
-              f"rounds {int(rounds.max())} != {int(prounds)}")
-        uerr = float((util - putil).abs().max())
-        print(f"phase 2: {weights:8s} N={n:3d} max_rounds={cap}: sel "
-              f"bit-equal, rounds {int(prounds)} (per graph "
-              f"{int(rounds.min())}..{int(rounds.max())}), util max abs "
-              f"diff {uerr:.3g}", flush=True)
+        for where, ps, pr in (("card", psel, prounds),
+                              ("CPU", csel, crounds)):
+            check(torch.equal(sel.cpu(), ps.cpu()), f"sel differs from the "
+                  f"plain version on the {where} ({weights}, N={n}, "
+                  f"max_rounds={cap})")
+            check(int(rounds.max()) == int(pr), f"rounds "
+                  f"{int(rounds.max())} != {int(pr)} ({where})")
+        check(util.dtype == wts.dtype, f"util dtype {util.dtype}")
+        if wts.dtype == torch.bfloat16:
+            ulps = int((util.view(torch.int16).int()
+                        - putil.view(torch.int16).int()).abs().max())
+            check(ulps <= 1, f"bf16 util {ulps} ulps from the plain one")
+        else:
+            torch.testing.assert_close(util, putil, rtol=1e-6, atol=1e-6,
+                                       equal_nan=True)
+        uerr = float((util.float() - putil.float()).abs().nan_to_num()
+                     .max())
+        print(f"phase 2: {weights:9s} N={n:3d} max_rounds={cap}: sel "
+              f"bit-equal (card and CPU plain), rounds {int(prounds)} (per "
+              f"graph {int(rounds.min())}..{int(rounds.max())}), util "
+              f"{util.dtype} max abs diff {uerr:.3g}", flush=True)
     return worst
 
 
@@ -337,12 +370,24 @@ def graph_ms(fn, iters, flush=None) -> float:
     return event_ms(graph.replay, iters, flush)
 
 
+def kernels_enqueued(fn) -> list:
+    """The names of the CUDA kernels one call of fn enqueues, as
+    torch.profiler traces them (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_timing(dev) -> dict:
     rng = np.random.default_rng(3)
     adjs, wtss = graphs(rng, B, N_MIN, N)
     gb = GraphBatch.from_scipy(adjs, wtss, pad_to=N, device=dev)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    ranks = lgs_ranks(gb.wts)
     rounds = batched_lgs_kernel(gb.adj, gb.wts, gb.mask)[2]
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -350,8 +395,11 @@ def phase_timing(dev) -> dict:
         return batched_lgs_kernel(gb.adj, gb.wts, gb.mask)
 
     ms = graph_ms(wrapper, 200, flush)
-    kernel_ms = graph_ms(lambda: launch(gb.adj, ranks, gb.mask, N), 200,
+    kernel_ms = graph_ms(lambda: launch(gb.adj, gb.wts, gb.mask, N), 200,
                          flush)
+    wts16 = gb.wts.bfloat16()
+    bf16_ms = graph_ms(lambda: batched_lgs_kernel(gb.adj, wts16, gb.mask),
+                       200, flush)
     ranks_ms = graph_ms(lambda: lgs_ranks(gb.wts), 200, flush)
     eager_ms = event_ms(wrapper, 200, flush)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -367,16 +415,32 @@ def phase_timing(dev) -> dict:
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"phase 5: lgs B={B} N={N}, L2 flushed before each launch: "
-          f"batched_lgs_kernel {ms:.4f} ms (graph replay; "
-          f"{eager_ms:.4f} ms enqueued eagerly), of which the CUDA kernel "
-          f"{kernel_ms:.4f} ms and lgs_ranks {ranks_ms:.4f} ms; plain "
-          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({nbytes} "
-          f"bytes; operations {ops_ms * 1e3:.4f} us); at {bound_ms / ms:.2%}"
-          f" of the bound (kernel alone {bound_ms / kernel_ms:.2%}); "
-          f"rounds per graph {int(rounds.min())}..{int(rounds.max())}; "
-          f"peak memory {peak / 2**20:.1f} MiB", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+          f"batched_lgs_kernel (weights in; sel, util, rounds out) "
+          f"{ms:.4f} ms (graph replay; {eager_ms:.4f} ms enqueued eagerly; "
+          f"bf16 weights {bf16_ms:.4f} ms), the bare kernel launch "
+          f"{kernel_ms:.4f} ms; lgs_ranks alone (a yardstick, off the "
+          f"path) {ranks_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({nbytes} bytes; operations "
+          f"{ops_ms * 1e3:.4f} us); at {bound_ms / ms:.2%} of the bound "
+          f"(kernel alone {bound_ms / kernel_ms:.2%}); rounds per graph "
+          f"{int(rounds.min())}..{int(rounds.max())}; peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    return {"ms": ms, "kernel_ms": kernel_ms, "bf16_ms": bf16_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "wrapper": wrapper}
+
+
+def phase_enqueued(wrapper) -> int:
+    """Phase 5's count, taken after every timed phase: a torch.profiler
+    session leaves the launches after it slower on the host."""
+    enqueued = kernels_enqueued(wrapper)
+    check(len(enqueued) == 1, f"batched_lgs_kernel on f32 weights enqueued "
+          f"{len(enqueued)} kernels: {enqueued}")
+    print(f"phase 5 (counted after phase 11): kernels one batched_lgs_kernel "
+          f"call enqueues: {len(enqueued)} ({', '.join(enqueued)})",
+          flush=True)
+    return len(enqueued)
 
 
 # ---------------------------------------------------------------------------
@@ -1001,6 +1065,7 @@ def main() -> int:
     launches = batched_lgs_kernel.launches
     check(launches > 0, "the closed loop never launched the LGS kernel")
     timing = phase_timing(dev)
+    wrapper = timing.pop("wrapper")
     kernels = [{"name": "lgs", "route": "cuda",
                 "source": "distgcn_tpu_torch/csrc/lgs.cu",
                 "replaces": "distgcn_tpu/ops/lgs_pallas.py:48",
@@ -1030,6 +1095,7 @@ def main() -> int:
                         "replaces": "distgcn_tpu/ops/spmm.py:521",
                         "launches": sharded.launches,
                         **phase_sharded_kernels(dev, large, sharded)})
+    kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
