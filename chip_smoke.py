@@ -78,13 +78,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    2^24 + 4096 weights with ties equal to `lgs_ranks` (where f32 ranks
    would collide), the int32 neighbour-max timed as in phase 9, and the
    sharded solve's time beside the exact route's (marginal of 2 and 6
-   solves).
+   solves);
+12. the agent: a `DQNAgent` (gcn2_dqn) loads a temporary copy of the
+   ERGDPG2 l20 c32 checkpoint; `solve_mwis` on 8 ER graphs of 100..256
+   nodes gives independent, maximal schedules (one LGS launch each); 32
+   memorized samples are replayed once on the card and once on the CPU
+   from the same params and Adam state (per-sample losses within rtol
+   1e-4, each parameter within 2·lr·32 + rtol 1e-4), and the TF1 update on
+   identical gradients agrees within rtol 1e-6;
+13. the batched GDPG trainer: `cli.train_gdpg.main` with
+   --device_batch=128 for one epoch over 512 generated ER graphs (64 test
+   graphs, replay every 256 graphs, 200 samples a replay, a temporary
+   model root): losses finite, params changed, at least 2 LGS launches a
+   batch; one `make_train_pipeline` batch checked (schedules independent
+   and maximal, head 0 of acts = rand on explored graphs); the pipeline's
+   graphs/s (marginal of 1 and 5 batches), ms per replay sample (200
+   samples) and the epoch's wall time;
+14. the online training loop at B=128, N=256, load 0.9 with the ERGDPG2
+   model in f32: T=20 and T=60 episodes give the per-slot marginal;
+   losses finite, queues finite, >= 0 and 0 on padding, at least 2 LGS
+   launches a slot; the peak device memory.
 
-The launch counts of the JSON line come from the main paths: phase 4 for
-the LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the
-int32 neighbour-max (counts set to 0 just before, read just after). Runs
-of the sharded path across several cards (D > 1 over NCCL) need a
-multi-card machine; this script takes one card.
+The launch counts of the JSON line come from the main paths: phase 4 for the
+LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the int32
+neighbour-max (counts set to 0 just before, read just after); the LGS
+entry's `train_launches` gives the trainer paths' main runs, each counted
+the same way: phase 12's 40 solves, phase 13's `train_gdpg` epoch and phase
+14's T=60 episode. `model/` is only read: the trainers write into temporary
+copies. Runs of the sharded path across several cards (D > 1 over NCCL) need
+a multi-card machine; this script takes one card.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the one before it a JSON object with one entry per kernel.
@@ -96,9 +118,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -108,8 +132,11 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from distgcn_tpu_torch.agents import build_state_arrays
+from distgcn_tpu_torch.agents import DQNAgent, build_state_arrays
+from distgcn_tpu_torch.cli import train_gdpg
 from distgcn_tpu_torch.core.graph import GraphBatch
+from distgcn_tpu_torch.data.generate import er_graph, generate_graph_dataset
+from distgcn_tpu_torch.data.matio import load_dataset_cached
 from distgcn_tpu_torch.large import (bsr_lgs, build_large_graph,
                                      geometric_conflict_graph,
                                      large_gcn_forward,
@@ -140,9 +167,14 @@ from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
 from distgcn_tpu_torch.parallel.large_sharded import (make_sharded_large_solve,
                                                       shard_arrays,
                                                       shard_large_graph)
-from distgcn_tpu_torch.pipeline import make_solve_pipeline
-from distgcn_tpu_torch.sim.device_sim import make_closed_loop
+from distgcn_tpu_torch.pipeline import (make_solve_pipeline,
+                                        make_train_pipeline)
+from distgcn_tpu_torch.rl.train import make_optimizer
+from distgcn_tpu_torch.sim.device_sim import (make_closed_loop,
+                                              make_online_training_loop)
+from distgcn_tpu_torch.solvers.greedy import greedy_search
 from distgcn_tpu_torch.utils.config import Config
+from distgcn_tpu_torch.utils.directory import find_model_folder
 from distgcn_tpu_torch.utils.serialization import load_params
 
 B, N = 128, 256
@@ -1031,6 +1063,263 @@ LARGE_KERNELS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# the trainer paths
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4
+MODEL_DIR = os.path.dirname(CKPT)
+
+
+def train_config(**kw) -> Config:
+    """The ERGDPG2 l20 c32 checkpoint's configuration, as `train_gdpg`
+    names it (`find_model_folder` resolves to MODEL_DIR's name)."""
+    return Config(feature_size=1, hidden1=32, num_layer=20, diver_num=1,
+                  max_degree=1, predict="mwis", pad_to=128,
+                  training_set="ERGDPG2", learning_rate=TRAIN_LR, **kw)
+
+
+def model_root_copy(root: str) -> str:
+    """A temporary model root holding a copy of the checkpoint: the
+    trainers' checkpoint gate writes there, never into `model/`."""
+    dst = os.path.join(root, os.path.basename(MODEL_DIR))
+    os.makedirs(dst)
+    shutil.copy(CKPT, dst)
+    return root
+
+
+def er_instances(rng, k):
+    """k ER graphs of 100..256 nodes (average degree 5..25) from the
+    port's generator, with U(0,1) weights."""
+    out = []
+    for _ in range(k):
+        n = int(rng.integers(N_MIN, N + 1))
+        out.append((er_graph(n, float(rng.uniform(0.05, 0.1)), rng),
+                    rng.random(n)))
+    return out
+
+
+def schedule_ok_host(mwis, adj) -> bool:
+    """A host schedule (set of node ids) is independent and maximal."""
+    on = np.zeros(adj.shape[0], dtype=bool)
+    on[list(mwis)] = True
+    hit = np.asarray(adj @ on.astype(np.float64)).ravel() > 0
+    return not bool((on & hit).any()) and bool((on | hit).all())
+
+
+def sync_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_agent(dev, tmp) -> dict:
+    """Phase 12: the agent on the card, and one replay held against the
+    same replay on the CPU."""
+    root = model_root_copy(os.path.join(tmp, "agent_models"))
+    cfg = train_config(epsilon=0.0)
+    folder = find_model_folder(cfg, "dqn", root)
+    agent = DQNAgent(cfg, device=dev)
+    cpu = DQNAgent(cfg, device="cpu")
+    check(agent.load(folder) and cpu.load(folder), "checkpoint load")
+    rng = np.random.default_rng(12)
+    reset_launch_counts()
+    for a, w in er_instances(rng, 8):
+        mwis, util = agent.solve_mwis(a, w)
+        check(schedule_ok_host(mwis, a), "a solve_mwis schedule is not "
+              "independent and maximal")
+        check(abs(util - w[list(mwis)].sum()) <= 1e-9 * max(util, 1.0),
+              "solve_mwis utility")
+    solves = batched_lgs_kernel.launches
+    check(solves >= 8, f"8 solves launched the LGS kernel {solves} times")
+    for a, w in er_instances(rng, 32):
+        agent.solve_mwis(a, w, train=True, grd=greedy_search(a, w)[1])
+    launches = batched_lgs_kernel.launches
+    minibatch = list(agent.memory)
+    check(len(minibatch) == 32, f"{len(minibatch)} memorized samples")
+    batch = agent.trainer.prepare(minibatch)
+    secs, losses = sync_s(lambda: agent.trainer.step(*batch))
+    closses = cpu.trainer.step(*cpu.trainer.prepare(minibatch))
+    lerr = float(((losses.cpu() - closses).abs() / closses.abs()).max())
+    check(bool(torch.isfinite(losses).all()) and lerr <= 1e-4,
+          f"per-sample losses card vs CPU: max rel diff {lerr}")
+    perr = 0.0
+    cstate = cpu.model.state_dict()
+    for k, v in agent.model.state_dict().items():
+        want = cstate[k]
+        excess = ((v.cpu() - want).abs() - 1e-4 * want.abs()).max()
+        perr = max(perr, float(excess))
+    check(perr <= 2 * TRAIN_LR * 32, f"params card vs CPU after the replay: "
+          f"{perr} beyond rtol 1e-4 (bound {2 * TRAIN_LR * 32})")
+    # the TF1 update alone on identical gradients
+    gen = torch.Generator().manual_seed(5)
+    params = {k: v.detach().cpu() for k, v in
+              agent.model.named_parameters()}
+    opt = make_optimizer(TRAIN_LR)
+    states = {"card": opt.init({k: v.to(dev) for k, v in params.items()}),
+              "cpu": opt.init(params)}
+    uerr = 0.0
+    for _ in range(3):
+        grads = {k: torch.randn(v.shape, generator=gen)
+                 for k, v in params.items()}
+        ucard, states["card"] = opt.update(
+            {k: g.to(dev) for k, g in grads.items()}, states["card"])
+        ucpu, states["cpu"] = opt.update(grads, states["cpu"])
+        for k in grads:
+            got, want = ucard[k].cpu(), ucpu[k]
+            uerr = max(uerr, float(((got - want).abs()
+                                    / want.abs().clamp_min(1e-30)).max()))
+    check(uerr <= 1e-6, f"TF1 update card vs CPU: max rel diff {uerr}")
+    print(f"phase 12: DQNAgent gcn2_dqn ERGDPG2 l20 c32 from a copy of the "
+          f"checkpoint: 8 solve_mwis schedules independent+maximal "
+          f"({solves} LGS launches); one replay of 32 samples, card vs CPU: "
+          f"losses max rel diff {lerr:.3g}, params max excess over rtol "
+          f"1e-4 {perr:.3g} (bound {2 * TRAIN_LR * 32:.3g}); TF1 update "
+          f"on identical gradients max rel diff {uerr:.3g}; card replay "
+          f"{secs / 32 * 1e3:.3f} ms per sample", flush=True)
+    return {"launches": launches, "losses_rel_diff": lerr,
+            "replay_ms_per_sample": secs / 32 * 1e3}
+
+
+def phase_gdpg_cli(dev, tmp) -> dict:
+    """Phase 13: one epoch of `train_gdpg.main` with --device_batch=128 on
+    generated ER data, then one `make_train_pipeline` batch checked and
+    the pipeline's and the replay's rates."""
+    t0 = time.perf_counter()
+    for sub, per, seed in (("train", 64, 13), ("test", 8, 14)):
+        generate_graph_dataset(os.path.join(tmp, sub), "ER",
+                               sizes=(100, 150, 200, 256), ps=(0.05, 0.1),
+                               n_per_config=per, seed=seed, label=False)
+    os.environ["DISTGCN_PACK_CACHE"] = os.path.join(tmp, "packs")
+    root = model_root_copy(os.path.join(tmp, "cli_models"))
+    gen_s = time.perf_counter() - t0
+    cfg = train_config()
+    agent = DQNAgent(cfg, device=dev)
+    losses = []
+    replay = agent.replay
+
+    def recorded_replay(batch_size):
+        losses.append(replay(batch_size))
+        return losses[-1]
+
+    agent.replay = recorded_replay
+    check(agent.load(find_model_folder(cfg, "dqn", root)), "checkpoint load")
+    before = {k: v.clone() for k, v in agent.model.state_dict().items()}
+    argv = [f"--datapath={tmp}/train", f"--test_datapath={tmp}/test",
+            f"--model_root={root}", "--training_set=ERGDPG2",
+            "--num_layer=20", "--hidden1=32", "--feature_size=1",
+            "--diver_num=1", "--max_degree=1", "--predict=mwis",
+            f"--learning_rate={TRAIN_LR}", "--epochs=1", "--pad_to=128",
+            "--device_batch=128", "--replay_every=256",
+            "--replay_batch=200", "--device=cuda"]
+    reset_launch_counts()
+    epoch_s, best = sync_s(lambda: train_gdpg.main(argv, agent=agent))
+    launches = batched_lgs_kernel.launches
+    batches = 512 // 128
+    check(launches >= 2 * batches, f"{launches} LGS launches for "
+          f"{batches} train batches")
+    check(len(losses) == 2 and all(x is not None and np.isfinite(x)
+                                   for x in losses), f"losses {losses}")
+    moved = max(float((v - before[k]).abs().max())
+                for k, v in agent.model.state_dict().items())
+    check(moved > 0, "the params did not change")
+
+    # one train-pipeline batch, checked; then its rate and the replay's
+    adjs = [i.adj for i in load_dataset_cached(os.path.join(tmp, "train"))]
+    rng = np.random.default_rng(15)
+    pipe = make_train_pipeline(agent.model, agent.flags)
+    batch_adjs = adjs[:B]
+    batch_wts = [rng.random(a.shape[0]) for a in batch_adjs]
+    gb = GraphBatch.from_scipy(batch_adjs, batch_wts, pad_to=N, device=dev)
+    rand = torch.rand((B, N), generator=torch.Generator().manual_seed(16)
+                      ).to(dev)
+    explore = torch.arange(B, device=dev) % 2 == 0
+    sel, util, gutil, acts = pipe(gb.adj, gb.wts, gb.mask, rand, explore)
+    check(independent_and_maximal(sel, gb.adj, gb.mask),
+          "a train-pipeline schedule is not independent and maximal")
+    check(torch.equal(acts[explore, :, 0], (rand * gb.mask)[explore]),
+          "acts head 0 is not rand on the explored graphs")
+    check(bool(torch.isfinite(util).all() and torch.isfinite(gutil).all()),
+          "train-pipeline utilities")
+    secs = {}
+    for k in (1, 5):
+        secs[k] = sync_s(lambda: [pipe(gb.adj, gb.wts, gb.mask, rand,
+                                       explore) for _ in range(k)])[0]
+    graphs_s = 4 * B / (secs[5] - secs[1])
+    sel_h, util_h, gutil_h = sel.cpu().numpy(), util.cpu(), gutil.cpu()
+    acts_h = acts.cpu().numpy()
+    minibatch = []
+    for j in range(200):
+        a = batch_adjs[j % B]
+        n = a.shape[0]
+        minibatch.append((
+            {"adj": a, "wts": batch_wts[j % B].astype(np.float32)},
+            acts_h[j % B, :n].copy(),
+            np.nonzero(sel_h[j % B, :n] == 1)[0].tolist(), {},
+            float(util_h[j % B] / (gutil_h[j % B] + 1e-6))))
+    replay_s, _ = sync_s(lambda: agent.trainer.train_minibatch(minibatch))
+    print(f"phase 13: train_gdpg.main --device_batch=128, 512 ER train + 64 "
+          f"test graphs of 100..256 nodes (generated in {gen_s:.3f} s), one "
+          f"epoch: {epoch_s:.3f} s wall, {len(losses)} replays of 200, "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}, params moved "
+          f"by up to {moved:.3g}, {launches} LGS launches, best test ratio "
+          f"{best:.6f}; make_train_pipeline B={B} N={N}: schedules "
+          f"independent+maximal, head 0 = rand on explored graphs, "
+          f"{graphs_s:.1f} graphs/s (marginal of 1 and 5 batches: "
+          f"{secs[1] * 1e3:.3f} / {secs[5] * 1e3:.3f} ms); replay of 200 "
+          f"samples {replay_s:.3f} s, {replay_s / 200 * 1e3:.3f} ms per "
+          f"sample", flush=True)
+    return {"launches": launches, "graphs_per_s": graphs_s,
+            "replay_ms_per_sample": replay_s / 200 * 1e3,
+            "epoch_s": epoch_s}
+
+
+def phase_online(dev, tree) -> dict:
+    """Phase 14: the online training loop at B=128, N=256, load 0.9, the
+    ERGDPG2 l20 c32 model in f32."""
+    cfg = train_config()
+    model = make_model_from_config(cfg, "gcn2_dqn",
+                                   params=params_from_jax(tree), device=dev)
+    rng = np.random.default_rng(17)
+    adjs, wtss = graphs(rng, B, N_MIN, N)
+    gb = GraphBatch.from_scipy(adjs, wtss, pad_to=N, device=dev)
+    opt = make_optimizer(TRAIN_LR)
+    state = opt.init(dict(model.named_parameters()))
+    q0 = torch.zeros((B, N), device=dev)
+    runs = {t: make_online_training_loop(model, cfg, opt, timeslots=t,
+                                         load=0.9) for t in (3, 20, 60)}
+    state = runs[3](state, gb.adj, gb.mask, q0,
+                    torch.Generator(device=dev).manual_seed(0))[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = {}
+    for t in (20, 60):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        reset_launch_counts()
+        secs[t], (state, qT, metrics) = sync_s(
+            lambda: runs[t](state, gb.adj, gb.mask, q0, gen))
+        launches = batched_lgs_kernel.launches
+        check(launches >= 2 * t, f"{launches} LGS launches in {t} slots")
+        check(bool(torch.isfinite(metrics["loss"]).all()), "online losses")
+        check(bool(torch.isfinite(qT).all()) and bool((qT >= 0).all()),
+              "online queues")
+        check(bool((qT[~gb.mask] == 0).all()), "padding queues not 0")
+    peak = torch.cuda.max_memory_allocated(dev)
+    slot_s = (secs[60] - secs[20]) / 40
+    loss = metrics["loss"].cpu().numpy()
+    print(f"phase 14: online training loop, ERGDPG2 l20 c32 f32, B={B} "
+          f"N={N}, load 0.9: T=20 {secs[20]:.4f} s, T=60 {secs[60]:.4f} s, "
+          f"per slot {slot_s * 1e3:.4f} ms (marginal), {launches} LGS "
+          f"launches in 60 slots, loss first/last {loss[0]:.6f} / "
+          f"{loss[-1]:.6f}, avg_utility_ratio "
+          f"{float(metrics['avg_utility_ratio'].mean()):.6f}, "
+          f"avg_queue_len {float(metrics['avg_queue_len'].mean()):.4f}; "
+          f"peak device memory {peak / 2**20:.1f} MiB", flush=True)
+    return {"launches": launches, "ms_per_slot": slot_s * 1e3,
+            "peak_mib": peak / 2**20}
+
+
 COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
            "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
            "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
@@ -1095,6 +1384,22 @@ def main() -> int:
                         "replaces": "distgcn_tpu/ops/spmm.py:521",
                         "launches": sharded.launches,
                         **phase_sharded_kernels(dev, large, sharded)})
+    # each phase counts the LGS launches of its own main path: the solves
+    # (12), the train_gdpg epoch (13), the T=60 episode (14)
+    train = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, phase, arg in (("agent", phase_agent, tmp),
+                                 ("gdpg_cli", phase_gdpg_cli, tmp),
+                                 ("online", phase_online, tree)):
+            t0 = time.perf_counter()
+            result = phase(dev, arg)
+            train[name] = result["launches"]
+            check(train[name] > 0, f"the {name} path never launched the "
+                  "LGS kernel")
+            print(f"phase {12 + len(train) - 1}: "
+                  f"{time.perf_counter() - t0:.3f} s wall; {result}",
+                  flush=True)
+    kernels[0]["train_launches"] = train
     kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)

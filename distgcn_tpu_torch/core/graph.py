@@ -115,6 +115,12 @@ class GraphBatch:
                    torch.from_numpy(mask).to(dev),
                    torch.tensor(sizes, dtype=torch.int32, device=dev))
 
+    @classmethod
+    def single(cls, adj, wts, pad_to: int = 0, bucket: int = 128,
+               dtype=np.float32, device=None) -> "GraphBatch":
+        return cls.from_scipy([adj], [wts], pad_to=pad_to, bucket=bucket,
+                              dtype=dtype, device=device)
+
     def to_scipy(self) -> List[sp.csr_matrix]:
         adj = self.adj.cpu().numpy()
         nn = self.nn.cpu().numpy()

@@ -9,7 +9,7 @@ Q-net families, which share topology and differ in head activation/bias:
 
 `params_from_jax` turns a JAX-package parameter tree (nested dicts of numpy
 arrays, from Flax ``init`` or a ``model/*/params.npz``) into this module's
-``state_dict``: the layer names (``gc{i}``, ``skip``) and parameter names
+``state_dict`` and `params_to_jax` turns one back: the layer names (``gc{i}``, ``skip``) and parameter names
 (``w_{k}``, ``bias``, ``kernel``) are the JAX package's own.
 """
 
@@ -128,6 +128,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             state[f"{layer}.{name}"] = torch.from_numpy(
                 np.array(value, dtype=np.float32))
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """ChebGCN state_dict -> JAX parameter tree (nested dicts of numpy
+    arrays): the inverse of `params_from_jax`."""
+    tree: Dict[str, Dict] = {}
+    for key, value in state.items():
+        layer, name = key.split(".")
+        tree.setdefault(layer, {})[name] = value.detach().cpu().numpy()
+    return tree
 
 
 def _has_bias(state: Mapping[str, torch.Tensor]) -> bool:

@@ -9,8 +9,9 @@ Port of `distgcn_tpu/models/layers.py` (the reference's `gcn/layers.py`):
 - `Dense`: ``y = act(X @ W (+ b))``.
 
 Initialization: 'random' = glorot uniform U(±sqrt(6/(fi+fo))), drawn from an
-explicit `torch.Generator`; 'zeros'. Training-time dropout is not ported
-yet (it arrives with the trainers); inference ignores it in both packages.
+explicit `torch.Generator`; 'zeros'. Dropout is not ported: the JAX
+package applies it only under ``deterministic=False``, which none of its
+callers (the trainers included) passes.
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Batched device pipeline: state -> GCN -> LGS -> utility.
 
 Port of `distgcn_tpu/pipeline.py` (`make_solve_pipeline`,
-`make_resident_pipeline`, `BatchedEvaluator`). A batch of padded graphs goes
-through support construction, the GCN forward, the LGS solve and the
-utility reduction with no host round-trip; on CUDA tensors LGS is the
-hand-written kernel. The training variant (`make_train_pipeline`) comes
-with the trainers.
+`make_train_pipeline`, `make_resident_pipeline`, `BatchedEvaluator`). A
+batch of padded graphs goes through support construction, the GCN forward,
+the LGS solve and the utility reduction with no host round-trip; on CUDA
+tensors LGS is the hand-written kernel.
 
 bf16 mode (``flags.compute_dtype == 'bfloat16'``) scores the GCN in bf16:
 features, supports and params are cast; the solver-side weights stay f32,
@@ -69,6 +68,42 @@ def make_solve_pipeline(model, flags: Config, feature_mode: str = "gdpg",
         # greedy baseline on the same device pass (greedy == LGS on raw w)
         gutil = batched_lgs(adj, wts, mask)[1]
         return sel, util, gutil
+
+    return solve
+
+
+def make_train_pipeline(model, flags: Config, feature_mode: str = "gdpg"):
+    """Training variant of `make_solve_pipeline` with the reference's
+    epsilon-greedy VALUE exploration (mwis_gdpg_call.py:696-705: on an
+    exploring graph the per-node scores are replaced by U(0,1) draws
+    before the LGS; the memorized act_vals are those draws).
+
+    Returns solve(adj, wts, mask, rand, explore) ->
+    (sel [B,N] int8, util [B], greedy-baseline util [B], acts [B,N,H])
+    where rand [B,N] are uniform draws, explore [B] bool selects the graphs
+    that explore, and acts is the value tensor actually used (model
+    outputs in the weights' dtype, head 0 overwritten by rand on explored
+    graphs). Two LGS launches per call. The scoring forward runs on a
+    (per-call) cast copy in bf16 mode; the model's own parameters, which
+    the replay updates, stay f32.
+    """
+    dtype = _compute_dtype(flags)
+
+    @torch.no_grad()
+    def solve(adj, wts, mask, rand, explore):
+        features, supports = build_state_arrays(
+            adj, wts, mask, flags.feature_size, flags.max_degree,
+            flags.predict, feature_mode)
+        net = cast_model(model, dtype)
+        acts = net(features.to(dtype), supports.to(dtype)).to(wts.dtype)
+        m = mask.to(wts.dtype)
+        ex = explore[:, None].to(wts.dtype)
+        act0 = ex * rand * m + (1.0 - ex) * (acts[..., 0] * m)
+        acts[..., 0] = act0
+        gcn_wts = act0 * wts if flags.predict == "mwis" else act0
+        sel = batched_lgs(adj, gcn_wts, mask)[0]
+        gutil = batched_lgs(adj, wts, mask)[1]
+        return sel, selected_utility(sel, wts), gutil, acts
 
     return solve
 

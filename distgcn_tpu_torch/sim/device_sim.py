@@ -1,10 +1,11 @@
-"""Device-resident closed-loop wireless scheduler.
+"""Device-resident closed-loop wireless scheduler and online trainer.
 
 Port of `distgcn_tpu/sim/device_sim.py` (`make_slot_step`,
-`make_closed_loop`). The conflict graphs, GCN parameters, supports, queues
-and the traffic RNG all live on the device; the T-slot episode is a Python
-loop that never synchronises with the host (the LGS kernel launches
-without a sync and per-slot metrics stay on the device until the end).
+`make_closed_loop`, `make_online_training_loop`). The conflict graphs, GCN
+parameters, supports, queues and the traffic RNG all live on the device; the
+T-slot episode is a Python loop that never synchronises with the host (the
+LGS kernel launches without a sync and per-slot metrics stay on the device
+until the end).
 
 Semantics per slot (the reference's wireless_dqn_test.py):
 - arrivals ~ Poisson(0.5*(rate_lo+rate_hi)*load) per link;
@@ -34,6 +35,7 @@ from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.gcn import cast_model
 from distgcn_tpu_torch.ops.lgs import batched_lgs
 from distgcn_tpu_torch.pipeline import gcn_weights, selected_utility
+from distgcn_tpu_torch.rl.train import apply_updates, first_layer_l2
 from distgcn_tpu_torch.utils.config import Config
 
 
@@ -221,5 +223,113 @@ def make_closed_loop(model, flags: Config, timeslots: int,
             metrics["avg_utility_ratio"] = (
                 stats[:, 1] / torch.clamp(stats[:, 3], min=1e-9)).mean(dim=0)
         return queue, metrics
+
+    return run
+
+
+def make_online_train_step(model, flags: Config, optimizer,
+                           wt_sel: str = "qr", feature_mode: str = "gdpg"):
+    """One slot of online RL training, with arrivals and rates as inputs.
+
+    The slot schedules with the CURRENT parameters, computes the reward
+    ``util / max(gutil, 1e-9)``, regresses head 0 of the model toward the
+    DQN assignment target (target[solution] = reward, the other real nodes
+    toward their own scores; mwis_dqn_call.py:168-171) with the RMSE over
+    real nodes plus the layer-1 L2 term, and applies one `optimizer`
+    update (a `rl.train.GradientTransformation`, e.g. `tf1_adam`) to the
+    model's parameters in place — one gradient step per slot, batched over
+    all B graphs. Two LGS launches per slot.
+
+    As in the JAX package (`sim/device_sim.py:360-362`), ``util`` is the
+    selected sum of the GCN weights ``act * w`` (`batched_lgs` returns the
+    utility under the weights it is given) while ``gutil`` is under the raw
+    weights, so the reward is sum(act*w)/sum_greedy(w), not the
+    raw-utility ratio; ROADMAP §C records it. f32 only, like the JAX loop
+    (``flags.compute_dtype`` is not read).
+
+    Returns step(opt_state, supports, adjb, mask, queue, arrivals, rates)
+    -> (opt_state, queue', {"loss": [], "ratio": [], "queue_sum": [B]}).
+    """
+    wd = flags.weight_decay
+    params = dict(model.named_parameters())
+
+    def step(opt_state, supports, adjb, mask, queue, arrivals, rates):
+        m = mask.to(queue.dtype)
+        queue = queue + arrivals
+        wts = slot_utilities(queue, rates, wt_sel) * m
+        feats = build_features(wts, mask, flags.feature_size, flags.predict,
+                               feature_mode)
+        out = model(feats, supports)                         # [B, N, D]
+        act = out[..., 0].detach().to(wts.dtype) * m
+        gcn_wts = act * wts if flags.predict == "mwis" else act
+        sel, util, _ = batched_lgs(adjb, gcn_wts, mask)
+        gutil = batched_lgs(adjb, wts, mask)[1]
+        reward = util / torch.clamp(gutil, min=1e-9)          # [B]
+        on = sel == 1
+        labels = torch.where(on, reward[:, None], act)
+        err = (out[..., 0] - labels) ** 2 * m
+        mse = err.sum(dim=-1) / torch.clamp(m.sum(dim=-1), min=1.0)
+        loss = torch.sqrt(mse).mean() + wd * first_layer_l2(model)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates, opt_state = optimizer.update(dict(zip(params, grads)),
+                                              opt_state)
+        apply_updates(params, updates)
+        departures = torch.minimum(queue, rates * on.to(queue.dtype))
+        queue = queue - departures
+        return opt_state, queue, {"loss": loss.detach(),
+                                  "ratio": reward.mean(),
+                                  "queue_sum": (queue * m).sum(dim=-1)}
+
+    return step
+
+
+def make_online_training_loop(model, flags: Config, optimizer,
+                              timeslots: int, load: float = 0.9,
+                              rate_lo: float = 0.0, rate_hi: float = 100.0,
+                              wt_sel: str = "qr",
+                              feature_mode: str = "gdpg"):
+    """Online RL training inside the scheduling episode, on the device.
+
+    Every slot draws arrivals and rates (as `make_closed_loop` does) and
+    runs `make_online_train_step`; the model's parameters are updated in
+    place every slot, so no cast copy is kept.
+
+    Returns run(opt_state, adj, mask, queue0, generator) ->
+      (opt_state, queueT,
+       {"loss": [T], "avg_utility_ratio": [T], "avg_queue_len": [B]}).
+    """
+    draw_arrivals = make_poisson_arrivals(0.5 * (rate_lo + rate_hi) * load)
+    mean_r = 0.5 * (rate_lo + rate_hi)
+    std_r = 0.25 * (rate_hi - rate_lo)
+    step = make_online_train_step(model, flags, optimizer, wt_sel,
+                                  feature_mode)
+
+    def run(opt_state, adj, mask, queue0, generator: torch.Generator):
+        dev = queue0.device
+        if _index(generator.device) != _index(dev):
+            raise ValueError(f"generator on {generator.device}, inputs on "
+                             f"{dev}")
+        m = mask.to(queue0.dtype)
+        supports = prep.masked_simple_polynomials_dense(adj, mask,
+                                                        flags.max_degree)
+        adjb = adj > 0
+        stats = torch.empty((timeslots, 2), dtype=torch.float32, device=dev)
+        queue_sum = torch.empty((timeslots, queue0.shape[0]),
+                                dtype=torch.float32, device=dev)
+        queue = queue0
+        for t in range(timeslots):
+            arrivals = draw_arrivals(generator, queue.shape, queue.dtype) * m
+            rates = torch.randn(queue.shape, generator=generator,
+                                device=dev) * std_r + mean_r
+            rates = torch.clamp(torch.trunc(rates), rate_lo, rate_hi) * m
+            opt_state, queue, slot = step(opt_state, supports, adjb, mask,
+                                          queue, arrivals, rates)
+            stats[t, 0] = slot["loss"]
+            stats[t, 1] = slot["ratio"]
+            queue_sum[t] = slot["queue_sum"]
+        nreal = torch.clamp(m.sum(dim=-1), min=1.0)
+        return opt_state, queue, {
+            "loss": stats[:, 0], "avg_utility_ratio": stats[:, 1],
+            "avg_queue_len": queue_sum.mean(dim=0) / nreal}
 
     return run

@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from distgcn_tpu_torch.agents import DQNAgent
+from distgcn_tpu_torch.cli import train_gdpg
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.models.gcn import make_model_from_config
 from distgcn_tpu_torch.pipeline import BatchedEvaluator
+from distgcn_tpu_torch.rl.train import ReplayTrainer
 from distgcn_tpu_torch.utils.config import Config
 from distgcn_tpu_torch.utils.device import resolve_device
 
@@ -46,7 +49,10 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
                 "utils.device", "utils.serialization", "ops.spmm",
                 "ops.spmm_cuda", "ops.nbr_max_cuda", "ops.cheb_fused",
                 "ops.cheb_fused_cuda", "large", "parallel.distributed",
-                "parallel.halo", "parallel.large_sharded", "parallel.mesh"):
+                "parallel.halo", "parallel.large_sharded", "parallel.mesh",
+                "utils.directory", "data.matio", "data.generate",
+                "solvers.greedy", "compat.tf1_ckpt", "rl.losses", "rl.train",
+                "rl.checkpoint", "cli.train_gdpg"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
     assert result["banned"] == []
 
@@ -64,6 +70,29 @@ def test_default_device_entry_points_raise_without_a_card(rng):
                                "feature_mode": "gdpg"})()
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedEvaluator(agent)
+
+
+def test_trainer_entry_points_raise_without_a_card(rng):
+    """The agent, the replay trainer and `train_gdpg.main` default to the
+    card. The train pipeline and the online loop run where their inputs
+    lie, and those inputs come from `GraphBatch.from_scipy` and
+    `make_model_from_config`, which default to the card (checked above)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    cfg = Config(num_layer=2, hidden1=8, feature_size=1, diver_num=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DQNAgent(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_gdpg.main(["--datapath=/nonexistent", "--device_batch=8"])
+    cpu_agent = DQNAgent(cfg, device="cpu")
+    adj = np.ones((3, 3)) - np.eye(3)
+    entry = ({"adj": adj, "wts": np.ones(3, np.float32)},
+             np.ones((3, 1), np.float32), [0], {}, 1.0)
+    assert np.isfinite(cpu_agent.trainer.train_minibatch([entry]))
+    agent = type("Agent", (), {"model": cpu_agent.model, "flags": cfg,
+                               "device": None, "feature_mode": "gdpg"})()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplayTrainer(agent).train_minibatch([entry])
 
 
 def test_cpu_device_sets_full_f32_matmuls():
