@@ -39,9 +39,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    `build_large_graph(block_size=512)` (bitmap structure blocks of
    256x256). Each large-graph kernel against its plain version on the
    card: the neighbour-max on bitmap and int8 streams (bit-equal,
-   sentinel rows included), the SpMM on the bitmap stream and on f32 value
-   blocks of a weighted copy (rtol 2e-5, atol 1e-5, through
-   `bsr_spmm_rows` and `bsr_spmm`), each with two launches bit-equal,
+   sentinel rows included), the SpMM on the bitmap stream (through
+   `bsr_spmm_rows` and `bsr_spmm`) and on a weighted copy through its
+   edge form (the structure bitmap plus per-edge values): the 512-wide
+   value matrix's (`bsr_spmm_rows`, `bsr_spmm`) and the `LargeGraph`
+   route's on the 256-wide structure blocks, each against
+   `bsr_spmm_plain` over the value blocks and `edge_spmm_plain` over its
+   edge form (rtol 2e-5, atol 1e-5), each with two launches bit-equal,
    and the fused layer of a 20-layer
    128-wide ChebGCN (K=1, glorot from a seeded generator), one hidden
    layer and the head (within 2^-6 of the largest |value|, mean relative
@@ -52,7 +56,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    the neighbour-max kernel equal to the plain `ell_lgs`; 20 fused-layer
    launches per fused solve and 2 neighbour-max launches per LGS round;
    the per-solve time as the marginal of two repeat counts, edges x
-   layers / s, and the time of the solve with the GCN hoisted;
+   layers / s, and the time of the solve with the GCN hoisted; then the
+   weighted exact solve on phase 6's weighted copy: independent and
+   maximal, utility within 1% of the same solve over `bsr_spmm_plain`
+   layers, 20 SpMM launches per solve, and its per-solve marginal;
 8. the large closed loop with the ERGDPG2 checkpoint (gdpg, GCN hoisted,
    load 0.9): queues finite, >= 0 and 0 on padding, the neighbour-max
    launched every slot;
@@ -60,8 +67,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    replays, L2 flushed) beside the plain version, the bound and a PyTorch
    library call computing the same function where there is one; beside
    the SpMM, the share of nonzero bitmap words and the x bytes it reads,
-   and its time on phase 6's f32 value blocks (`f32_values_ms` in the
-   kernels line, with their byte bound); beside the fused layer,
+   and its time on phase 6's weighted copy through the `LargeGraph` route
+   (`f32_values_ms` in the kernels line, with the bound of the function,
+   the bound of the f32 value blocks, the plain version's time,
+   `torch.sparse.mm` on a CSR copy of the weighted matrix and the edge
+   form of the 512-wide value matrix); beside the fused layer,
    `exact_layer_ms`: the exact route's layer on the same inputs (SpMM
    kernel, two f32 matmuls, epilogue), timed the same way;
 10. the sharded giant-graph path at phase 6's width: a one-rank NCCL
@@ -135,9 +145,10 @@ from torch.profiler import ProfilerActivity, profile
 from distgcn_tpu_torch.agents import DQNAgent, build_state_arrays
 from distgcn_tpu_torch.cli import train_gdpg
 from distgcn_tpu_torch.core.graph import GraphBatch
+from distgcn_tpu_torch.core.prep import normalize_adj
 from distgcn_tpu_torch.data.generate import er_graph, generate_graph_dataset
 from distgcn_tpu_torch.data.matio import load_dataset_cached
-from distgcn_tpu_torch.large import (bsr_lgs, build_large_graph,
+from distgcn_tpu_torch.large import (_make_spmm, bsr_lgs, build_large_graph,
                                      geometric_conflict_graph,
                                      large_gcn_forward,
                                      make_large_closed_loop,
@@ -160,7 +171,8 @@ from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
 from distgcn_tpu_torch.ops.spmm import (I32_SENT, NEG_HUGE, BsrMatrix,
                                         bsr_nbr_max_plain, bsr_neighbor_max,
                                         bsr_row_ptr, bsr_spmm, bsr_spmm_plain,
-                                        bsr_spmm_rows, nbr_max_rows)
+                                        bsr_spmm_rows, edge_spmm_plain,
+                                        nbr_max_rows)
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
 from distgcn_tpu_torch.parallel import distributed
 from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
@@ -592,33 +604,61 @@ def phase_large_kernels(dev, L) -> dict:
               "two launches bit-equal", flush=True)
     errs["bsr_nbr_max"] = worst
     # SpMM: the exact route's operand r * y at F=128 on the structure
-    # stream, and f32 value blocks (bs 512) of a weighted copy
+    # stream, and a weighted copy through its edge form: the f32 value
+    # matrix's (bs 512) and the LargeGraph route's (Anorm's values on the
+    # 256-wide structure blocks), each against the plain version over the
+    # value blocks and the plain version over its edge form
     y = torch.randn((g.n_pad, LARGE_WIDTH), generator=gen, device=dev) * g.r
     rng = np.random.default_rng(12)
     wadj = sp.triu(L.adj, 1).tocsr()
     wadj.data = (rng.random(wadj.nnz) + 0.5).astype(np.float32)
-    gw = build_large_graph(wadj + wadj.T, block_size=512, device=dev)
-    check(not gw.separable and gw.bsr is not None
-          and gw.bsr.blk_vals.dtype == torch.float32, "weighted value blocks")
+    L.wadj = (wadj + wadj.T).tocsr()
+    gw = build_large_graph(L.wadj, block_size=512, device=dev)
+    wb, gi = gw.bsr, gw.ind_bsr
+    check(not gw.separable and wb is not None
+          and wb.blk_vals.dtype == torch.float32 and gw.edge is not None
+          and gw.edge.words is gi.blk_vals and gi.block_size == 256,
+          "weighted value blocks and edge form")
     L.gw = gw
+    anorm = _make_spmm(gw)
+    plain_w = bsr_spmm_plain(wb.blk_vals, gw.row_ptr, wb.blk_cols, y,
+                             wb.n_rows, 512)
+
+    def edge_plain(e, rp, cols, bs):
+        return edge_spmm_plain(e.words, rp, cols, e.vals, e.off, y, g.n_pad,
+                               bs)
+
+    cases = (
+        ("bitmap", ind,
+         [bsr_spmm_plain(ind.blk_vals, g.ind_row_ptr, ind.blk_cols, y,
+                         ind.n_rows, 256, True)],
+         (("bsr_spmm_rows", lambda: bsr_spmm_rows(ind, y, g.ind_row_ptr)),
+          ("bsr_spmm", lambda: bsr_spmm(ind, y)))),
+        ("f32 edge form", wb,
+         [plain_w, edge_plain(wb.edge, gw.row_ptr, wb.blk_cols, 512)],
+         (("bsr_spmm_rows", lambda: bsr_spmm_rows(wb, y, gw.row_ptr)),
+          ("bsr_spmm", lambda: bsr_spmm(wb, y)))),
+        ("f32 edge form on the structure", gi,
+         [plain_w, edge_plain(gw.edge, gw.ind_row_ptr, gi.blk_cols, 256)],
+         (("the LargeGraph route", lambda: anorm(y)),
+          ("the LargeGraph route", lambda: anorm(y)))))
     worst = 0.0
-    for kind, b, rp in (("bitmap", ind, g.ind_row_ptr),
-                        ("f32 values", gw.bsr, gw.row_ptr)):
-        want = bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, y, b.n_rows,
-                              b.block_size, b.bitmap)
+    for kind, b, wants, routes in cases:
         outs = []
-        for route, fn in (("bsr_spmm_rows", lambda: bsr_spmm_rows(b, y, rp)),
-                          ("bsr_spmm", lambda: bsr_spmm(b, y))):
+        for route, fn in routes:
             got = fn()
             torch.cuda.synchronize()
             outs.append(got)
-            err = float((got - want).abs().max())
-            worst = max(worst, err)
-            check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
-                  f"SpMM {kind} via {route}: max abs diff {err}")
-            print(f"phase 6: bsr_spmm {kind} ({b.num_blocks} blocks of "
-                  f"{b.block_size}) via {route}: max abs diff {err:.3g} "
-                  f"(rtol 2e-5, atol 1e-5)", flush=True)
+            for plain, want in zip(("blocks", "edge form"), wants):
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
+                      f"SpMM {kind} via {route}: max abs diff {err} from the "
+                      f"plain version over the {plain}")
+                print(f"phase 6: bsr_spmm {kind} ({b.num_blocks} blocks of "
+                      f"{b.block_size}) via {route}: max abs diff {err:.3g} "
+                      f"from the plain version over the {plain} (rtol 2e-5, "
+                      "atol 1e-5)", flush=True)
         check(torch.equal(*outs), f"SpMM {kind}: two launches differ")
         print(f"phase 6: bsr_spmm {kind}: the two launches bit-equal",
               flush=True)
@@ -732,6 +772,53 @@ def phase_large_solve(dev, L) -> None:
           f"{per_hoisted * 1e3:.4f} ms", flush=True)
 
 
+def plain_weighted_solve(gw, plist, w):
+    """The weighted exact dqn solve with every layer's SpMM from
+    `bsr_spmm_plain` over the value blocks: (sel, util)."""
+    wb = gw.bsr
+    m = gw.mask.to(torch.float32)
+    h = (w / ((w.abs() * m).max() + 1e-9) * m)[:, None]
+    for li, layer in enumerate(plist):
+        y = h @ layer["w_1"]
+        y = y - bsr_spmm_plain(wb.blk_vals, gw.row_ptr, wb.blk_cols, y,
+                               wb.n_rows, wb.block_size)
+        out = h @ layer["w_0"] + y
+        if "bias" in layer:
+            out = out + layer["bias"]
+        h = leaky_relu02(out) if li < len(plist) - 1 else out
+    sel = bsr_lgs(gw, h[:, 0] * m, gw.mask)[0]
+    return sel, torch.where(sel == 1, w, torch.zeros_like(w)).sum()
+
+
+def phase_weighted_solve(L) -> None:
+    """Phase 7's weighted solve: `make_large_solve(predict="dqn")` on phase
+    6's weighted copy, whose every layer runs the SpMM kernel over the
+    edge form."""
+    gw, w, plist = L.gw, L.w, L.plist
+    solve = make_large_solve(gw, predict="dqn")
+    s0 = bsr_spmm_kernel.launches
+    sel, util, _ = solve(plist, w)
+    torch.cuda.synchronize()
+    launches = bsr_spmm_kernel.launches - s0
+    check(launches == LARGE_LAYERS,
+          f"weighted solve launched the SpMM {launches} times")
+    check(schedule_ok(sel, L.wadj, gw.n), "weighted schedule not valid")
+    psel, putil = plain_weighted_solve(gw, plist, w)
+    check(schedule_ok(psel, L.wadj, gw.n), "plain weighted schedule")
+    util, putil = float(util), float(putil)
+    rel = abs(util - putil) / abs(putil)
+    check(rel <= 0.01, f"weighted utility off the plain layers' by {rel:.4%}")
+    per_solve = marginal_s(lambda i: solve(plist, w * (1.0 + 0.001 * i)))
+    print(f"phase 7: weighted make_large_solve dqn {LARGE_LAYERS}x"
+          f"{LARGE_WIDTH} (edge form on {gw.ind_bsr.num_blocks} blocks of "
+          f"256, {gw.edge.vals.numel()} values): schedule independent and "
+          f"maximal; utility {util:.6f}, with bsr_spmm_plain layers "
+          f"{putil:.6f} (rel diff {rel:.4%}), "
+          f"{int((sel != psel).sum())} selections differ; SpMM launches "
+          f"per solve {launches}; per solve (marginal of 2 and 6 solves) "
+          f"{per_solve * 1e3:.4f} ms", flush=True)
+
+
 def phase_large_closed_loop(dev, L, tree) -> None:
     g = L.g
     plist = params_to_list(tree, device=dev)
@@ -817,20 +904,53 @@ def phase_large_timing(dev, L) -> dict:
           f"{nnz / nz:.2f} edges per nonzero word; the kernel reads x once "
           f"per nonzero word: {nz * f * 4} bytes (once per edge: "
           f"{nnz * f * 4}), kernel {ms:.4f} ms", flush=True)
-    # the f32 value stream of phase 6's weighted copy (the value-block
-    # loop): bound = the value blocks, their ids, x and y
-    gw = L.gw
-    vals = gw.bsr.blk_vals.numel() * 4
-    vmeta = (gw.row_ptr.numel() + gw.bsr.blk_cols.numel()) * 4
-    vms = graph_ms(lambda: bsr_spmm_rows(gw.bsr, y, gw.row_ptr), 20, flush)
-    vbnd = bound(vals + vmeta + 2 * n * f * 4, f32_ops=2 * nnz * f)
+    # phase 6's weighted copy through the LargeGraph route (the edge form on
+    # the 256-wide structure blocks): its function's bound (words, values,
+    # run offsets, block ids, x and y) beside the bound of the f32 value
+    # blocks the parent's kernel read, and torch.sparse.mm on a CSR copy of
+    # the same (normalised, weighted) matrix
+    gw, ge, gi = L.gw, L.gw.edge, L.gw.ind_bsr
+    anorm = _make_spmm(gw)
+    vms = graph_ms(lambda: anorm(y), 50, flush)
+    v512_ms = graph_ms(lambda: bsr_spmm_rows(gw.bsr, y, gw.row_ptr), 50,
+                       flush)
+    vplain_ms = event_ms(lambda: edge_spmm_plain(
+        ge.words, gw.ind_row_ptr, gi.blk_cols, ge.vals, ge.off, y, n, 256),
+        5, flush)
+    ebytes = (ge.words.numel() + ge.vals.numel() + ge.off.numel()
+              + gw.ind_row_ptr.numel() + gi.blk_cols.numel()) * 4
+    vbnd = bound(ebytes + 2 * n * f * 4, f32_ops=2 * nnz * f)
+    blocks = gw.bsr.blk_vals.numel() * 4
+    bbnd = bound(blocks + (gw.row_ptr.numel() + gw.bsr.blk_cols.numel()) * 4
+                 + 2 * n * f * 4, f32_ops=2 * nnz * f)
+    wa = sp.csr_matrix(normalize_adj(L.wadj), dtype=np.float32)
+    wa.resize(n, n)
+    wa.sort_indices()
+    wcsr = torch.sparse_csr_tensor(
+        torch.from_numpy(wa.indptr.astype(np.int64)),
+        torch.from_numpy(wa.indices.astype(np.int64)),
+        torch.from_numpy(wa.data), size=(n, n),
+        check_invariants=True).to(dev)
+    lib = torch.sparse.mm(wcsr, y)
+    check(torch.allclose(anorm(y), lib, rtol=2e-5, atol=1e-5),
+          "the edge-form SpMM differs from torch.sparse.mm")
+    wlib_ms = event_ms(lambda: torch.sparse.mm(wcsr, y), 50, flush)
     out["bsr_spmm"].update(f32_values_ms=vms,
-                           f32_values_bound_ms=vbnd["bound_ms"])
-    print(f"phase 9: bsr_spmm f32 values ({gw.bsr.num_blocks} blocks of "
-          f"{gw.bsr.block_size}) F=128, L2 flushed: kernel {vms:.4f} ms, "
+                           f32_values_bound_ms=vbnd["bound_ms"],
+                           f32_values_blocks_bound_ms=bbnd["bound_ms"],
+                           f32_values_plain_ms=vplain_ms,
+                           f32_values_library_ms=wlib_ms,
+                           f32_values_bs512_ms=v512_ms)
+    print(f"phase 9: bsr_spmm f32 edge form ({gi.num_blocks} blocks of 256, "
+          f"{ge.vals.numel()} values) F=128, L2 flushed: kernel {vms:.4f} ms "
+          f"(the LargeGraph route), plain {vplain_ms:.4f} ms, library "
+          f"{wlib_ms:.4f} ms (torch.sparse.mm on the weighted CSR, eager), "
           f"bound {vbnd['bound_ms'] * 1e3:.3f} us ({vbnd['bound_by']}: "
-          f"{vals} bytes of values), kernel at "
-          f"{vbnd['bound_ms'] / vms:.2%} of the bound", flush=True)
+          f"{ebytes} bytes of edge form), kernel at "
+          f"{vbnd['bound_ms'] / vms:.2%} of the bound; the f32 value "
+          f"blocks' bound {bbnd['bound_ms'] * 1e3:.3f} us ({blocks} bytes); "
+          f"the edge form of the 512-wide value matrix "
+          f"({gw.bsr.num_blocks} blocks) {v512_ms:.4f} ms", flush=True)
     # fused hidden layer
     h = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
     r = g.r.reshape(-1).contiguous()
@@ -1365,6 +1485,7 @@ def main() -> int:
     errs = phase_large_kernels(dev, large)
     reset_launch_counts()
     phase_large_solve(dev, large)
+    phase_weighted_solve(large)
     phase_large_closed_loop(dev, large, tree)
     counts = launch_counts()
     for name, _, _ in LARGE_KERNELS:

@@ -25,20 +25,27 @@ struct Walk {
 };
 
 // The words of the next kGroup chunks (lane j: word j of each) and their
-// column ids, advancing p; past the last chunk, zero words.
-__device__ __forceinline__ void load_group(const uint32_t* __restrict__ words,
-                                           const int32_t* __restrict__ cols,
-                                           int nch, int wr, int bs, int lane,
-                                           Walk& p, uint32_t (&wv)[kGroup],
-                                           int (&cv)[kGroup]) {
+// column ids, advancing p; past the last chunk, zero words. With kRuns
+// (the SpMM's edge form), rv[t] = runs[k * nch + wr], the first value of
+// the run of chunk t's block and word-row, where chunk t starts its block,
+// and -1 elsewhere.
+template <bool kRuns>
+__device__ __forceinline__ void load_chunks(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ cols,
+    const int32_t* __restrict__ runs, int nch, int wr, int bs, int lane,
+    Walk& p, uint32_t (&wv)[kGroup], int (&cv)[kGroup], int (&rv)[kGroup]) {
 #pragma unroll
   for (int t = 0; t < kGroup; ++t) {
     wv[t] = 0u;
     cv[t] = 0;
+    if (kRuns) rv[t] = -1;
     if (t < p.left) {
       const int j = p.jc * 32 + lane;
       wv[t] = words[(static_cast<size_t>(p.k) * nch + wr) * bs + j];
       cv[t] = cols[p.k] * bs + j;
+      if (kRuns && p.jc == 0) {
+        rv[t] = runs[static_cast<size_t>(p.k) * nch + wr];
+      }
       if (++p.jc == nch) {
         p.jc = 0;
         ++p.k;
@@ -46,6 +53,15 @@ __device__ __forceinline__ void load_group(const uint32_t* __restrict__ words,
     }
   }
   p.left = p.left > kGroup ? p.left - kGroup : 0;
+}
+
+__device__ __forceinline__ void load_group(const uint32_t* __restrict__ words,
+                                           const int32_t* __restrict__ cols,
+                                           int nch, int wr, int bs, int lane,
+                                           Walk& p, uint32_t (&wv)[kGroup],
+                                           int (&cv)[kGroup]) {
+  int rv[kGroup];
+  load_chunks<false>(words, cols, nullptr, nch, wr, bs, lane, p, wv, cv, rv);
 }
 
 }  // namespace bitmap_walk

@@ -18,9 +18,10 @@ Routes, as in the JAX package:
   inner block of ``min(block_size, 256)``) live on the device. With K=1
   each GCN layer is one fused-layer kernel (`ops/cheb_fused.py`); K>1,
   weighted adjacencies and ``fused=False`` go through the BSR SpMM
-  (`ops.spmm.bsr_spmm_rows`), and the LGS streams the same blocks through
-  the neighbour-max (`bsr_lgs`). On CUDA tensors these launch the three
-  CUDA kernels; on CPU tensors their plain versions run.
+  (`ops.spmm.bsr_spmm_rows`; a weighted Anorm as its edge form on the
+  structure blocks, `ops.spmm.edge_spmm_rows`), and the LGS streams the
+  same blocks through the neighbour-max (`bsr_lgs`). On CUDA tensors these
+  launch the three CUDA kernels; on CPU tensors their plain versions run.
 - ELL (``use_bsr=False``): gather SpMM (`ops.spmm.ell_spmm`) and the
   gather LGS (`ops.lgs.ell_lgs`), on either device.
 
@@ -45,9 +46,10 @@ from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.layers import identity, leaky_relu02
 from distgcn_tpu_torch.ops.cheb_fused import fused_forward, pad_params
 from distgcn_tpu_torch.ops.lgs import ell_lgs, lgs_ranks
-from distgcn_tpu_torch.ops.spmm import (BsrMatrix, bsr_neighbor_max,
-                                        bsr_row_ptr, bsr_spmm_rows, ell_pack,
-                                        ell_spmm)
+from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues,
+                                        bsr_neighbor_max, bsr_row_ptr,
+                                        bsr_spmm_rows, edge_spmm_rows,
+                                        edge_values_coo, ell_pack, ell_spmm)
 from distgcn_tpu_torch.sim.device_sim import (make_poisson_arrivals,
                                               slot_utilities)
 from distgcn_tpu_torch.utils.device import resolve_device
@@ -59,8 +61,9 @@ class LargeGraph:
 
     Anorm = normalize_adj(A) is held as ELLPACK cols/vals (the gather
     route and the ELL LGS) and, on the BSR route, as A's 0/1 structure
-    blocks (plus value blocks where the normalization is not separable or
-    ``value_blocks=True``).
+    blocks, plus, where the normalization is not separable or
+    ``value_blocks=True``, Anorm's values on those blocks (``edge``, the
+    SpMM's operand) and f32 value blocks (``bsr``, which no solve reads).
     """
     n: int                      # real node count
     n_pad: int                  # padded (multiple of block_size)
@@ -77,6 +80,7 @@ class LargeGraph:
     bitmap: bool = False                     # ind_bsr is bitmap-packed
     r: Optional[torch.Tensor] = None         # [n_pad, 1] f32 = deg^-1/2
     separable: bool = False
+    edge: Optional[EdgeValues] = None        # Anorm's values on ind_bsr
 
     @property
     def use_bsr(self) -> bool:
@@ -94,7 +98,8 @@ def build_large_graph(adj, block_size: int = 512,
     work, depends on it. ``use_bsr`` defaults to True on a CUDA device.
     For 0/1 adjacencies only structure blocks are built unless
     ``value_blocks=True``; weighted adjacencies always build f32 value
-    blocks. The structure blocks are ``min(block_size, 256)`` wide and
+    blocks and Anorm's edge form on the structure blocks (from its COO, on
+    the host). The structure blocks are ``min(block_size, 256)`` wide and
     bitmap-packed when that is a multiple of 32.
     """
     dev = resolve_device(device)
@@ -147,20 +152,26 @@ def build_large_graph(adj, block_size: int = 512,
         g.ind_bsr = BsrMatrix.from_scipy(
             ind, ibs, dtype="bits" if g.bitmap else np.int8, device=dev)
         g.ind_row_ptr = bsr_row_ptr(g.ind_bsr)
+        if value_blocks:
+            g.edge = edge_values_coo(anorm, g.ind_bsr)
     return g
 
 
 def _make_spmm(graph: LargeGraph) -> Callable[[torch.Tensor], torch.Tensor]:
     """y -> Anorm @ y on [n_pad, F]."""
-    if graph.use_bsr and graph.bsr is None:
-        # separable: Anorm @ y = r * (A @ (r * y)) over the structure blocks
+    ind = graph.ind_bsr
+    if graph.use_bsr and graph.edge is not None:
+        # Anorm's values, one per set bit of the structure blocks
         def anorm_spmm(y):
-            return bsr_spmm_rows(graph.ind_bsr, y * graph.r,
-                                 graph.ind_row_ptr) * graph.r
+            return edge_spmm_rows(graph.edge, graph.ind_row_ptr,
+                                  ind.blk_cols, y, ind.n_rows,
+                                  ind.block_size)
         return anorm_spmm
     if graph.use_bsr:
+        # separable: Anorm @ y = r * (A @ (r * y)) over the structure blocks
         def anorm_spmm(y):
-            return bsr_spmm_rows(graph.bsr, y, graph.row_ptr)
+            return bsr_spmm_rows(ind, y * graph.r, graph.ind_row_ptr) \
+                * graph.r
         return anorm_spmm
 
     def anorm_spmm(y):

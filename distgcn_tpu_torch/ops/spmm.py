@@ -11,8 +11,14 @@ Port of `distgcn_tpu/ops/spmm.py`:
 - Bitmap blocks (``dtype="bits"``): [nb, bs//32, bs] int32 words, bit
   ``i % 32`` of word ``[i // 32, j]`` = cell ``(i, j)`` (the JAX package's
   `pack_bits_blocks` layout), packed straight from COO.
+- `EdgeValues`: the edge form of a weighted (or int8) matrix, the bitmap
+  of its structure plus its nonzero values in the order the SpMM kernel
+  meets the set bits. `edge_values` builds it from value or int8 blocks,
+  `edge_values_coo` from COO aligned to a bitmap `BsrMatrix`;
+  `BsrMatrix.from_scipy` builds it once beside value and int8 blocks.
 - `bsr_spmm_rows` / `bsr_spmm` (y = S @ x, the counterparts of the JAX
-  row-grid and block-grid SpMMs) and `bsr_neighbor_max`
+  row-grid and block-grid SpMMs; value and int8 kinds through the edge
+  form, `edge_spmm_rows`) and `bsr_neighbor_max`
   (y[i] = max over structural neighbours j of x[j]) run their plain
   PyTorch versions on CPU tensors and the hand-written CUDA kernels
   (`ops/spmm_cuda.py`, `ops/nbr_max_cuda.py`) on CUDA tensors.
@@ -76,7 +82,8 @@ def block_values(blk_vals: torch.Tensor, bs: int, bitmap: bool
 class BsrMatrix:
     """Block-sparse S: blk_vals [nb, bs, bs] (or [nb, bs//32, bs] int32 if
     ``bitmap``), blk_rows/blk_cols [nb] int32 block ids sorted by
-    (row, col)."""
+    (row, col). ``edge``: the edge form of value and int8 blocks (the
+    operand of the SpMM), built by `from_scipy`."""
     blk_vals: torch.Tensor
     blk_rows: torch.Tensor
     blk_cols: torch.Tensor
@@ -85,6 +92,7 @@ class BsrMatrix:
     block_size: int
     nb_real: int = 0
     bitmap: bool = False
+    edge: Optional["EdgeValues"] = None
 
     @classmethod
     def from_scipy(cls, s: sp.spmatrix, block_size: int = 128,
@@ -92,7 +100,8 @@ class BsrMatrix:
         """Build from scipy. ``dtype``: a numpy dtype for value or int8
         structure blocks, ``torch.bfloat16`` for bf16 value blocks, or
         ``"bits"`` for bitmap structure blocks packed from COO (the dense
-        int8 stream is never built)."""
+        int8 stream is never built). Value and int8 blocks get their edge
+        form (`edge_values`) beside them."""
         dev = resolve_device(device)
         s = sp.csr_matrix(s)
         n, m = s.shape
@@ -133,9 +142,12 @@ class BsrMatrix:
             v = np.zeros((nb, bs, bs), dtype=dtype)
             v[inv, coo.row % bs, coo.col % bs] = coo.data
             vals = torch.from_numpy(v)
-        return cls(vals.to(dev), torch.from_numpy(rows).to(dev),
-                   torch.from_numpy(cols).to(dev), nr, nc, bs, nb_real=nb,
-                   bitmap=bitmap)
+        m = cls(vals.to(dev), torch.from_numpy(rows).to(dev),
+                torch.from_numpy(cols).to(dev), nr, nc, bs, nb_real=nb,
+                bitmap=bitmap)
+        if not bitmap:
+            m.edge = edge_values(m.blk_vals, bsr_row_ptr(m))
+        return m
 
     @property
     def num_blocks(self) -> int:
@@ -154,6 +166,111 @@ def _block_rows(row_ptr: torch.Tensor) -> torch.Tensor:
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     return torch.repeat_interleave(
         torch.arange(nr, device=row_ptr.device), counts)
+
+
+# ---------------------------------------------------------------------------
+# the edge form: the structure bitmap plus per-edge values
+# ---------------------------------------------------------------------------
+
+@dataclass
+class EdgeValues:
+    """A block-sparse matrix as the bitmap of its structure and its nonzero
+    values, beside the blocks' ``row_ptr`` and ``blk_cols``.
+
+    - ``words``: int32 [nb, nw, bs] with nw = ceil(bs / 32), the
+      `pack_bits_blocks` layout (bit i % 32 of word [i // 32, j] = cell
+      (i, j)). The plain version also takes int8 0/1 cells [nb, bs, bs]
+      here (a structure of a block size that is no multiple of 32).
+    - ``vals``: [nnz] f32 or bf16, or None for a 0/1 structure. Ordered by
+      (block, word-row g, column c, bit b): the order in which a warp of
+      the SpMM kernel meets the set bits of its 32-row group.
+    - ``off``: int32 [nb * nw + 1]; the values of run (block k, word-row
+      g) start at ``off[k * nw + g]``, and a word's first value sits
+      there plus the popcounts of the run's earlier words. Blocks past
+      ``row_ptr[-1]`` have empty runs.
+    """
+    words: torch.Tensor
+    vals: Optional[torch.Tensor]
+    off: torch.Tensor
+
+
+def _walk_bits(struct: torch.Tensor, bs: int) -> torch.Tensor:
+    """Bitmap words [nb, nw, bs] or 0/1 cells [nb, bs, bs] -> bool
+    [nb, nw, bs, 32] indexed (block, word-row g, column c, bit b): the
+    edge form's value order."""
+    if struct.dtype == torch.int32:
+        shifts = torch.arange(32, dtype=torch.int32, device=struct.device)
+        return ((struct[..., None] >> shifts) & 1).bool()
+    return _cells_by_word(struct != 0, bs)
+
+
+def _cells_by_word(cells: torch.Tensor, bs: int) -> torch.Tensor:
+    """[nb, bs, bs] cells -> [nb, nw, bs, 32] (rows past bs: zero)."""
+    nb, nw = cells.shape[0], -(-bs // 32)
+    if nw * 32 != bs:
+        cells = torch.cat([cells, cells.new_zeros((nb, nw * 32 - bs, bs))],
+                          dim=1)
+    return cells.reshape(nb, nw, 32, bs).transpose(2, 3)
+
+
+def edge_values(blocks: torch.Tensor, row_ptr: torch.Tensor) -> EdgeValues:
+    """The torch builder: the edge form of value (f32/bf16) or int8
+    structure blocks [nb, bs, bs] sorted by block-row (``row_ptr``), on
+    the blocks' device. Blocks past ``row_ptr[-1]`` give zero words and
+    empty runs."""
+    nb, bs = blocks.shape[0], blocks.shape[-1]
+    live = torch.arange(nb, device=blocks.device) < row_ptr[-1].to(
+        blocks.device)
+    bits = _cells_by_word((blocks != 0) & live[:, None, None], bs)
+    shifts = torch.arange(32, dtype=torch.int64, device=blocks.device)
+    w = (bits.to(torch.int64) << shifts).sum(-1)
+    words = torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+    vals = None
+    if blocks.dtype != torch.int8:
+        vals = _cells_by_word(blocks, bs)[bits].contiguous()
+    counts = bits.sum((2, 3)).reshape(-1)
+    off = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return EdgeValues(words.contiguous(), vals, off)
+
+
+def edge_runs(blk: np.ndarray, lrow: np.ndarray, lcol: np.ndarray,
+              data: np.ndarray, bs: int, nb: int):
+    """Host: (values in edge-form order, int32 off [nb * nw + 1]) of the
+    edges at block `blk`, row `lrow` and column `lcol` within it."""
+    nw = -(-bs // 32)
+    run = blk.astype(np.int64) * nw + lrow // 32
+    order = np.lexsort((lrow % 32, lcol, run))
+    off = np.zeros(nb * nw + 1, np.int64)
+    np.cumsum(np.bincount(run, minlength=nb * nw), out=off[1:])
+    return data[order], off.astype(np.int32)
+
+
+def edge_values_coo(s: sp.spmatrix, ind: "BsrMatrix",
+                    dtype=np.float32) -> EdgeValues:
+    """The host builder: the edge form of `s` on the structure blocks of
+    `ind` (bitmap, or int8 for a block size that is no multiple of 32),
+    which hold one cell for every stored entry of `s`, explicit zeros
+    included. ``words`` is ``ind.blk_vals`` itself; ``vals`` are f32, or
+    bf16 for ``dtype=torch.bfloat16``, on ind's device."""
+    coo = sp.csr_matrix(s, copy=True)
+    coo.sum_duplicates()
+    coo = coo.tocoo()
+    bs = ind.block_size
+    nbc = ind.n_cols // bs
+    bkeys = (ind.blk_rows.cpu().numpy().astype(np.int64) * nbc
+             + ind.blk_cols.cpu().numpy())
+    ekeys = (coo.row // bs).astype(np.int64) * nbc + coo.col // bs
+    blk = np.searchsorted(bkeys, ekeys)
+    if coo.nnz and (blk.max() >= bkeys.size
+                    or not np.array_equal(bkeys[blk], ekeys)):
+        raise ValueError("an entry of s lies outside ind's blocks")
+    vals, off = edge_runs(blk, coo.row % bs, coo.col % bs,
+                          coo.data.astype(np.float32), bs, ind.num_blocks)
+    v = torch.from_numpy(vals)
+    if dtype is torch.bfloat16:
+        v = v.to(torch.bfloat16)
+    dev = ind.blk_vals.device
+    return EdgeValues(ind.blk_vals, v.to(dev), torch.from_numpy(off).to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +301,54 @@ def bsr_spmm_plain(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
     return out.reshape(n_rows, f)
 
 
+def edge_spmm_plain(words: torch.Tensor, row_ptr: torch.Tensor,
+                    blk_cols: torch.Tensor, vals: Optional[torch.Tensor],
+                    off: torch.Tensor, x: torch.Tensor, n_rows: int,
+                    block_size: int) -> torch.Tensor:
+    """Plain PyTorch y = S @ x over the edge form (`EdgeValues`' fields;
+    ``vals`` None for a 0/1 structure): f32 [n_rows, F], 0 on rows with no
+    edge. Each edge's value is read at ``off[run]`` plus its rank in the
+    run, as the kernel reads it, and each row sums its edges in the
+    kernel's order (blocks in row_ptr order, columns ascending). Blocks
+    past ``row_ptr[-1]`` are never read. x: [n_cols, F] f32."""
+    bs = block_size
+    nw = -(-bs // 32)
+    words, blk_cols = _addressed(row_ptr, words, blk_cols)
+    k, g, c, b = _walk_bits(words, bs).nonzero(as_tuple=True)
+    run = k * nw + g
+    counts = torch.bincount(run, minlength=words.shape[0] * nw)
+    rank = torch.arange(run.numel(), device=x.device) - (
+        counts.cumsum(0) - counts)[run]
+    v = (torch.ones_like(rank, dtype=torch.float32) if vals is None
+         else vals[off[run].long() + rank].to(torch.float32))
+    rows = _block_rows(row_ptr)[k] * bs + g * 32 + b
+    cols = blk_cols[k].long() * bs + c
+    y = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    return y.index_add_(0, rows, v[:, None] * x[cols].to(torch.float32))
+
+
+def edge_spmm_rows(ev: EdgeValues, row_ptr: torch.Tensor,
+                   blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
+                   block_size: int) -> torch.Tensor:
+    """y = S @ x over the edge form: the plain version for CPU tensors, the
+    SpMM kernel (one multiply per set bit) for CUDA tensors, which
+    launches without synchronising. x: [n_cols, F] f32."""
+    if x.device.type == "cpu":
+        return edge_spmm_plain(ev.words, row_ptr, blk_cols, ev.vals, ev.off,
+                               x, n_rows, block_size)
+    from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
+    return bsr_spmm_kernel(ev.words, row_ptr, blk_cols, x, n_rows,
+                           block_size, True, ev.vals, ev.off)
+
+
 def spmm_rows(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
               blk_cols: torch.Tensor, x: torch.Tensor, n_rows: int,
               block_size: int, bitmap: bool = False) -> torch.Tensor:
     """y = S @ x on raw block arrays (the JAX `_bsr_spmm_rows`): the plain
-    version for CPU tensors, the SpMM kernel for CUDA tensors. Blocks past
-    ``row_ptr[-1]`` are never read. x: [n_cols, F] f32."""
+    version for CPU tensors, the SpMM kernel for CUDA tensors (value and
+    int8 blocks through their edge form, built for this call). Blocks
+    past ``row_ptr[-1]`` are never read. x: [n_cols, F] f32."""
     if x.device.type == "cpu":
         return bsr_spmm_plain(blk_vals, row_ptr, blk_cols, x, n_rows,
                               block_size, bitmap)
@@ -208,13 +367,17 @@ def _pad_rows(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
 def bsr_spmm_rows(s: BsrMatrix, x: torch.Tensor,
                   row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = S @ x with f32 accumulation, for value (f32/bf16) and structure
-    (int8/bitmap) blocks; block-rows with no block give 0. Pass a
+    (int8/bitmap) blocks, value and int8 kinds through their edge form;
+    block-rows with no block give 0. Pass a
     precomputed `row_ptr` (`bsr_row_ptr`) to save its host-side build.
     Returns [n_rows, F] f32. On CUDA tensors this launches the SpMM kernel
     without synchronising."""
     if row_ptr is None:
         row_ptr = bsr_row_ptr(s)
     x = _pad_rows(x, s.n_cols)
+    if s.edge is not None:
+        return edge_spmm_rows(s.edge, row_ptr, s.blk_cols, x, s.n_rows,
+                              s.block_size)
     return spmm_rows(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
                      s.block_size, s.bitmap)
 
@@ -335,8 +498,9 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor
 
 
 class SparseSupport:
-    """Sparse support matrix: BSR SpMM kernel on a CUDA device, ELL gather
-    on the CPU."""
+    """Sparse support matrix: BSR SpMM kernel on a CUDA device (over the
+    edge form of its f32 value blocks, built once here), ELL gather on the
+    CPU."""
 
     def __init__(self, s: sp.spmatrix, block_size: int = 512, device=None):
         dev = resolve_device(device)

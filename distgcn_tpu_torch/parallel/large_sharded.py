@@ -15,14 +15,16 @@ with r = deg^-1/2, so the forward streams only the structure panels (int8,
 or bitmap words when bs % 32 == 0): the travelling shard is pre-scaled by
 its home slab's r, the ring accumulates A @ (r ⊙ y) through the SpMM
 kernel, and the owner applies r ⊙ (·). The SpMM and both LGS
-neighbour-maxes share the one structure stream. Weighted adjacencies fall
-back to f32 value panels.
+neighbour-maxes share the one structure stream. Weighted adjacencies add
+Anorm's values on that stream (each panel's edge form,
+`ops.spmm.EdgeValues`): one value per set bit of the structure panel.
 
 Per ring step, on CUDA tensors (the plain versions on CPU tensors):
-`ops.spmm.spmm_rows` (the SpMM kernel, `csrc/bsr_spmm.cu`) for each
-support application, `ops.spmm.nbr_max_rows` with an int32 payload (the
-int32 neighbour-max kernel, `csrc/bsr_nbr_max.cu`) for the remaining-rank
-max, and with an f32 payload (the f32 neighbour-max kernel) for the winner
+`ops.spmm.spmm_rows` (the SpMM kernel, `csrc/bsr_spmm.cu`; weighted:
+`ops.spmm.edge_spmm_rows`, the same kernel) for each support
+application, `ops.spmm.nbr_max_rows` with an int32 payload (the int32
+neighbour-max kernel, `csrc/bsr_nbr_max.cu`) for the remaining-rank max,
+and with an f32 payload (the f32 neighbour-max kernel) for the winner
 spread. The JAX package pads F to 128 lanes for its TPU kernels; the
 Hopper kernels take any F, so nothing is padded here.
 
@@ -42,7 +44,9 @@ import torch
 
 from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.layers import identity, leaky_relu02
-from distgcn_tpu_torch.ops.spmm import nbr_max_rows, spmm_rows
+from distgcn_tpu_torch.ops.spmm import (EdgeValues, edge_runs,
+                                        edge_spmm_rows, nbr_max_rows,
+                                        spmm_rows)
 from distgcn_tpu_torch.parallel.distributed import rank_world
 from distgcn_tpu_torch.parallel.halo import (pmax, ring_cheb_forward,
                                              ring_lgs, ring_reduce)
@@ -52,9 +56,11 @@ from distgcn_tpu_torch.utils.device import resolve_device
 @dataclass
 class ShardedLargeGraph:
     """BSR panels of A (structure) partitioned [D, D]; slab d = rows of
-    rank d. `ind` always exists (the LGS operand and, for separable
-    graphs, the SpMM operand); `vals` (Anorm value panels) only for
-    non-separable normalizations. Host (numpy) arrays."""
+    rank d. `ind` always exists (the LGS operand and the SpMM's
+    structure); `vals` (Anorm value panels, which no solve reads) and
+    `evals` / `eoff` (Anorm's values on the `ind` panels, the SpMM's
+    operand) only for non-separable normalizations. Host (numpy)
+    arrays."""
     n: int            # real node count
     n_pad: int        # multiple of d * block_size
     n_loc: int        # n_pad // d
@@ -75,6 +81,11 @@ class ShardedLargeGraph:
     # f32 Anorm value panels [D, D, nb_max, bs, bs], non-separable only
     vals: Optional[np.ndarray] = None
     separable: bool = True
+    # each panel's edge form (`ops.spmm.EdgeValues`), non-separable only:
+    # f32 values [D, D, nnz_max] (zero past the panel's count) and int32
+    # run offsets [D, D, nb_max * ceil(bs/32) + 1] (constant past rptr[-1])
+    evals: Optional[np.ndarray] = None
+    eoff: Optional[np.ndarray] = None
 
     @property
     def nnz_blocks(self) -> int:
@@ -86,7 +97,8 @@ class ShardedLargeGraph:
         """Streamed device-memory bytes per real directed edge for one
         forward pass: the panel blocks (read once per layer per ring sweep)
         plus the f32 activation shard read and accumulator update per ring
-        step."""
+        step. The JAX package's accounting: for a weighted graph it counts
+        the value panels, where the port's solve streams the edge form."""
         bs = self.block_size
         cell_bytes = (0.125 if self.bitmap else 1) if self.separable \
             else self.vals.dtype.itemsize
@@ -98,10 +110,10 @@ class ShardedLargeGraph:
 def shard_large_graph(adj, n_devices: int, block_size: int = 512
                       ) -> ShardedLargeGraph:
     """Partition A's structure (and, for non-separable normalizations, the
-    normalize_adj(A) values in f32) into the [D, D] panel grid, on the
-    host. The JAX package's ``block_dtype`` and ``value_blocks`` are not
-    taken: value panels are f32, the type the SpMM kernel reads, and exist
-    exactly when the solve reads them."""
+    normalize_adj(A) values in f32, as value panels and as each panel's
+    edge form) into the [D, D] panel grid, on the host. The JAX package's
+    ``block_dtype`` and ``value_blocks`` are not taken: values are f32,
+    the type the solve reads, and exist exactly for weighted graphs."""
     adj = sp.csr_matrix(adj)
     n = adj.shape[0]
     bs, d = block_size, n_devices
@@ -142,11 +154,25 @@ def shard_large_graph(adj, n_devices: int, block_size: int = 512
         ind = np.zeros((d, d, nb_max, bs, bs), np.int8)
         ind[u_pr[inv], u_ps[inv], pos_in_panel[inv],
             anorm.row % bs, anorm.col % bs] = 1
-    vals = None
+    vals = evals = eoff = None
     if not separable:
         vals = np.zeros((d, d, nb_max, bs, bs), np.float32)
         vals[u_pr[inv], u_ps[inv], pos_in_panel[inv],
              anorm.row % bs, anorm.col % bs] = anorm.data
+        # the edge form over every panel's blocks at once (panel p's blocks
+        # numbered p * nb_max + position), then cut per panel
+        runs = nb_max * -(-bs // 32)
+        ev, off = edge_runs(panel_of[inv] * nb_max + pos_in_panel[inv],
+                            anorm.row % bs, anorm.col % bs,
+                            anorm.data.astype(np.float32), bs,
+                            d * d * nb_max)
+        cnt = np.diff(off[::runs])
+        evals = np.zeros((d, d, max(int(cnt.max()), 1)), np.float32)
+        eoff = np.zeros((d, d, runs + 1), np.int32)
+        for p in range(d * d):
+            lo = off[p * runs]
+            eoff[p // d, p % d] = off[p * runs:(p + 1) * runs + 1] - lo
+            evals[p // d, p % d, :cnt[p]] = ev[lo:lo + cnt[p]]
     for p in range(d * d):
         sel = panel_of == p
         cnt = np.bincount(u_lbr[sel], minlength=nr_loc)
@@ -166,7 +192,8 @@ def shard_large_graph(adj, n_devices: int, block_size: int = 512
     return ShardedLargeGraph(n=n, n_pad=n_pad, n_loc=n_pad // d, d=d,
                              block_size=bs, nb_max=nb_max, rptr=rptr,
                              cols=cols, mask=mask, ind=ind, bitmap=bitmap,
-                             r=r, vals=vals, separable=separable)
+                             r=r, vals=vals, separable=separable,
+                             evals=evals, eoff=eoff)
 
 
 def _check_world(graph: ShardedLargeGraph, group) -> int:
@@ -186,7 +213,7 @@ def make_sharded_large_solve(graph: ShardedLargeGraph, feature_size: int = 1,
     SpMM over the panels) -> rank-based LGS (ring neighbour-max rounds).
 
     The four leading arguments are `shard_arrays`' slab: (ind, rptr,
-    cols, r) for separable graphs, (vals, rptr, cols, ind) for value-panel
+    cols, r) for separable graphs, (edge, rptr, cols, ind) for weighted
     graphs. params_list: per-layer dicts of f32 tensors on the slab's
     device (`large.params_to_list`). wts_loc [n_loc] f32 and mask_loc
     [n_loc] bool are this rank's rows. Returns sel_loc [n_loc] int8 and
@@ -203,20 +230,23 @@ def make_sharded_large_solve(graph: ShardedLargeGraph, feature_size: int = 1,
 
     @torch.no_grad()
     def solve(a1, a2, a3, a4, params_list, wts_loc, mask_loc):
-        for t in (a1, a2, a3, a4, wts_loc, mask_loc):
+        first = a1 if separable else a1.vals
+        for t in (first, a2, a3, a4, wts_loc, mask_loc):
             if t.device.type != dev.type:
                 raise ValueError(f"the solve runs on {dev}, got a tensor "
                                  f"on {t.device}")
         if separable:
             ind, rptr, cols, r_loc = a1, a2, a3, a4[:, None]
-            blocks, blocks_bitmap = ind, bmp
         else:
-            vals, rptr, cols, ind = a1, a2, a3, a4
-            blocks, blocks_bitmap = vals, False
+            edge, rptr, cols, ind = a1, a2, a3, a4
 
         def spmm_panel(src, shard):
-            return spmm_rows(blocks[src], rptr[src], cols[src], shard, n_loc,
-                             bs, blocks_bitmap)
+            if separable:
+                return spmm_rows(ind[src], rptr[src], cols[src], shard,
+                                 n_loc, bs, bmp)
+            return edge_spmm_rows(
+                EdgeValues(ind[src], edge.vals[src], edge.off[src]),
+                rptr[src], cols[src], shard, n_loc, bs)
 
         def nbr_max_panel(src, shard):
             # f32 (winner spread) or int32 (rank max, exact past 2^24);
@@ -256,8 +286,10 @@ def make_sharded_large_solve(graph: ShardedLargeGraph, feature_size: int = 1,
 
 def shard_arrays(graph: ShardedLargeGraph, device=None, group=None):
     """This rank's slab of the panel arrays and the mask, on `device`:
-    (ind, rptr, cols, r, mask) for separable graphs (no value panels
-    exist), (vals, rptr, cols, ind, mask) otherwise."""
+    (ind, rptr, cols, r, mask) for separable graphs, (edge, rptr, cols,
+    ind, mask) otherwise, where edge is the slab's `ops.spmm.EdgeValues`
+    (words: the ind slab itself, vals [D, nnz_max], off [D, runs + 1]).
+    The value panels stay on the host."""
     rank = _check_world(graph, group)
     dev = resolve_device(device)
     lo, hi = rank * graph.n_loc, (rank + 1) * graph.n_loc
@@ -269,5 +301,6 @@ def shard_arrays(graph: ShardedLargeGraph, device=None, group=None):
     if graph.separable:
         return (put(graph.ind[rank]), put(graph.rptr[rank]),
                 put(graph.cols[rank]), put(graph.r[lo:hi]), mask)
-    return (put(graph.vals[rank]), put(graph.rptr[rank]),
-            put(graph.cols[rank]), put(graph.ind[rank]), mask)
+    ind = put(graph.ind[rank])
+    edge = EdgeValues(ind, put(graph.evals[rank]), put(graph.eoff[rank]))
+    return (edge, put(graph.rptr[rank]), put(graph.cols[rank]), ind, mask)

@@ -29,7 +29,7 @@ from distgcn_tpu_torch import large as T
 from distgcn_tpu_torch.models.layers import identity
 from distgcn_tpu_torch.ops.cheb_fused import pad_params
 from distgcn_tpu_torch.ops.lgs import ell_lgs
-from distgcn_tpu_torch.ops.spmm import BsrMatrix, bsr_row_ptr
+from distgcn_tpu_torch.ops.spmm import BsrMatrix, bsr_row_ptr, edge_values
 from distgcn_tpu_torch.utils.serialization import load_params
 
 CKPT = "model/result_ERGDPG2_deep_ld1_c32_l20_cheb1_diver1_mwis_dqn/params.npz"
@@ -121,8 +121,19 @@ def test_build_large_graph_matches_jax(weighted):
                                       np.asarray(jg.bsr.blk_cols)[:nb])
         np.testing.assert_array_equal(g.row_ptr.numpy()[:-1],
                                       np.asarray(jg.row_ptr)[:-1])
+        # the SpMM's operand: Anorm's values on the structure blocks, equal
+        # to the torch builder's rebuild from the value blocks (the same
+        # 128-wide blocks) and to the value matrix's own edge form
+        assert g.edge.words is ind.blk_vals
+        rebuilt = edge_values(g.bsr.blk_vals, g.row_ptr)
+        for e in (rebuilt, g.bsr.edge):
+            np.testing.assert_array_equal(e.words.numpy(),
+                                          ind.blk_vals.numpy())
+            np.testing.assert_array_equal(e.vals.numpy(), g.edge.vals.numpy())
+            np.testing.assert_array_equal(e.off.numpy(), g.edge.off.numpy())
+        assert g.edge.vals.numel() == adj.nnz
     else:
-        assert g.bsr is None and jg.bsr is None
+        assert g.bsr is None and jg.bsr is None and g.edge is None
 
 
 @pytest.mark.parametrize("seed,max_rounds", [(0, None), (1, None), (2, 2)])

@@ -184,6 +184,23 @@ def test_kernels_never_read_blocks_past_row_ptr(cuda, bs):
     want = spmm.bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, x2, b.n_rows, bs,
                                True)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    # the edge form of a weighted copy: padding words of all-ones, values
+    # of NaN and run offsets far past the values change nothing
+    sw = s.copy()
+    sw.data = np.random.default_rng(bs).random(sw.nnz).astype(np.float32)
+    ev = spmm.BsrMatrix.from_scipy(sw, bs, device=cuda).edge
+    nw = bs // 32
+    pad = spmm.EdgeValues(
+        torch.cat([ev.words, vals[b.num_blocks:]]),
+        torch.cat([ev.vals, torch.full((64,), float("nan"), device=cuda)]),
+        torch.cat([ev.off, torch.full((4 * nw,), 1 << 30,
+                                      dtype=torch.int32, device=cuda)]))
+    got = spmm.edge_spmm_rows(pad, rp, cols, x2, b.n_rows, bs)
+    assert torch.equal(got, spmm.edge_spmm_rows(ev, rp, b.blk_cols, x2,
+                                                b.n_rows, bs))
+    want = spmm.edge_spmm_plain(ev.words, rp, b.blk_cols, ev.vals, ev.off,
+                                x2, b.n_rows, bs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -249,6 +266,45 @@ def test_sharded_large_solve_on_card_goes_through_the_kernels(cuda, bs,
 
 
 @pytest.mark.cuda
+def test_weighted_sharded_solve_on_card_equals_the_exact_route(cuda):
+    """A weighted graph: the one-rank sharded dqn solve (each panel's edge
+    form) equals the single-card exact route (the edge form on the same
+    256-wide bitmap blocks), one SpMM launch per layer on each."""
+    from distgcn_tpu_torch.parallel.large_sharded import (
+        make_sharded_large_solve, shard_arrays, shard_large_graph)
+    adj, wts, _ = large.geometric_conflict_graph(4000, avg_degree=24.0,
+                                                 seed=9, order="grid")
+    a = sp.triu(adj, 1).tocsr()
+    a.data = np.random.default_rng(9).uniform(0.5, 2.0, a.nnz).astype(
+        np.float32)
+    adj = (a + a.T).tocsr()
+    sg = shard_large_graph(adj, 1, block_size=256)
+    g = large.build_large_graph(adj, block_size=256, device=cuda)
+    assert sg.bitmap and not sg.separable and not g.separable
+    assert g.edge is not None and g.ind_bsr.block_size == 256
+    w = torch.zeros(sg.n_pad)
+    w[: sg.n] = torch.from_numpy(wts)
+    w = w.to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    tree = {f"gc{i + 1}": {"w_0": torch.randn(fi, fo, generator=gen) * 0.3,
+                           "w_1": torch.randn(fi, fo, generator=gen) * 0.3}
+            for i, (fi, fo) in enumerate([(1, 32), (32, 32), (32, 1)])}
+    plist = large.params_to_list(tree, device=cuda)
+    arrays = shard_arrays(sg, device=cuda)
+    solve = make_sharded_large_solve(sg, predict="dqn", device=cuda)
+    s0 = bsr_spmm_kernel.launches
+    sel, util = solve(*arrays[:4], plist, w, arrays[4])
+    torch.cuda.synchronize()
+    assert bsr_spmm_kernel.launches - s0 == 3
+    xsel, xutil, _ = large.make_large_solve(g, predict="dqn")(plist, w)
+    torch.cuda.synchronize()
+    assert bsr_spmm_kernel.launches - s0 == 6
+    assert torch.equal(sel, xsel)
+    assert float(util) == pytest.approx(float(xutil), rel=1e-5)
+    assert not (sel == -1).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("kind,bs", [("f32", 128), ("bf16", 64),
                                      ("int8", 128), ("bits", 32),
@@ -277,12 +333,52 @@ def test_spmm_kernel_matches_plain(cuda, case, kind, bs, f):
                                b.bitmap)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
     assert torch.equal(got, got_grid)          # two launches bit-equal
+    if kind != "bits":       # raw value blocks: the edge form of this call
+        raw = spmm.spmm_rows(b.blk_vals, rp, b.blk_cols, xp, b.n_rows, bs)
+        assert bsr_spmm_kernel.launches == before + 3
+        assert torch.equal(raw, got)
     if "empty" in case:
         assert not got[256:512].any()
     if case == "spanning_row":                 # every chunk of its row
         assert int(np.diff(s.indptr)[37]) >= s.shape[1] // 7
     if case == "dense_block":                  # 256 full words per group
         assert (np.diff(s.indptr)[:256] >= 256).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [64, 256, 512])
+@pytest.mark.parametrize("f", [32, 128, 200])
+def test_edge_spmm_kernel_matches_plain(cuda, case, kind, bs, f):
+    """The edge form (f32 and bf16 values, int8 structure) from both
+    builders against `edge_spmm_plain` and `bsr_spmm_plain` on the value
+    blocks; two launches bit-equal."""
+    s = _pattern(3, **CASES[case])
+    if kind == "int8":
+        s.data[:] = 1.0
+    dtype = {"f32": np.float32, "bf16": torch.bfloat16,
+             "int8": np.int8}[kind]
+    b = spmm.BsrMatrix.from_scipy(s, bs, dtype=dtype, device=cuda)
+    rp = spmm.bsr_row_ptr(b)
+    ind = spmm.BsrMatrix.from_scipy(s, bs, dtype="bits", device=cuda)
+    host = spmm.edge_values_coo(s, ind, dtype=dtype) if kind != "int8" \
+        else spmm.EdgeValues(ind.blk_vals, None, b.edge.off)
+    x = torch.rand((b.n_cols, f), generator=torch.Generator().manual_seed(f))
+    x = x.to(cuda)
+    before = bsr_spmm_kernel.launches
+    got = spmm.edge_spmm_rows(b.edge, rp, b.blk_cols, x, b.n_rows, bs)
+    again = spmm.edge_spmm_rows(host, rp, b.blk_cols, x, b.n_rows, bs)
+    assert bsr_spmm_kernel.launches == before + 2
+    assert torch.equal(got, again)             # two launches bit-equal
+    e = b.edge
+    want = spmm.edge_spmm_plain(e.words, rp, b.blk_cols, e.vals, e.off, x,
+                                b.n_rows, bs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    want = spmm.bsr_spmm_plain(b.blk_vals, rp, b.blk_cols, x, b.n_rows, bs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    if "empty" in case:
+        assert not got[256:512].any()
 
 
 def _fused_inputs(cuda, bitmap, f, seed=3):

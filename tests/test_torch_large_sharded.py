@@ -15,6 +15,7 @@ import scipy.sparse as sp
 import torch
 
 from distgcn_tpu_torch.large import geometric_conflict_graph, params_to_list
+from distgcn_tpu_torch.ops.spmm import edge_values
 from distgcn_tpu_torch.parallel import distributed
 from distgcn_tpu_torch.parallel.large_sharded import (make_sharded_large_solve,
                                                       shard_arrays,
@@ -27,6 +28,7 @@ CASES = {
     "bitmap": (700, 9.0, 61, 32, False, "fixed"),
     "int8": (700, 9.0, 61, 8, False, "fixed"),
     "weighted": (300, 8.0, 41, 8, True, "fixed_w"),
+    "weighted_bits": (300, 8.0, 41, 32, True, "fixed_w"),
     "bias_only": (300, 8.0, 22, 8, False, "bias"),
 }
 FIXED = {"fixed": (0.3, 0.9, 0.05), "fixed_w": (0.4, 0.7, 0.2),
@@ -150,6 +152,8 @@ def test_sharded_large_solve_matches_jax(port, jax_ref, world, name):
     assert not (sel == -1).any()
     if name == "bitmap":       # the same 0/1 operand as the int8 stream
         np.testing.assert_array_equal(sel, port[world][0]["int8/sel"])
+    if name == "weighted_bits":   # edge values on bitmap or int8 panels
+        np.testing.assert_array_equal(sel, port[world][0]["weighted/sel"])
     if name == "bias_only":    # scores == weights: plain LGS
         ref_set, ref_util = jax_ref["bias_only/greedy"]
         assert set(np.flatnonzero(sel == 1).tolist()) == ref_set
@@ -162,6 +166,7 @@ BUILDER_CASES = {
     "bitmap_d8": ("bitmap", 8, 32),
     "bitmap_d4_bs64": (None, 4, 64),
     "weighted_d8": ("weighted", 8, 8),
+    "weighted_d2_bs32": ("weighted", 2, 32),
 }
 
 
@@ -187,6 +192,31 @@ def test_shard_large_graph_matches_jax(case):
     for f in (0, 128):
         assert got.bytes_per_edge(adj.nnz, f=f, n_layers=3) == \
             want.bytes_per_edge(adj.nnz, f=f, n_layers=3)
+    assert (got.evals is None) == (got.eoff is None) == got.separable
+    if not got.separable:
+        _assert_panel_edges_rebuild(got)
+
+
+def _assert_panel_edges_rebuild(sg):
+    """Each panel's edge form equals the torch builder's rebuild from its
+    value panel: words as its structure panel packs them (the panel
+    itself when bitmap), values zero past the panel's count."""
+    nnz = 0
+    for p in range(sg.d * sg.d):
+        i, j = divmod(p, sg.d)
+        rptr = torch.from_numpy(sg.rptr[i, j])
+        want = edge_values(torch.from_numpy(sg.vals[i, j]), rptr)
+        words = edge_values(torch.from_numpy(sg.ind[i, j]), rptr).words \
+            if not sg.bitmap else torch.from_numpy(sg.ind[i, j])
+        np.testing.assert_array_equal(want.words.numpy(), words.numpy())
+        np.testing.assert_array_equal(sg.eoff[i, j], want.off.numpy())
+        cnt = want.vals.numel()
+        np.testing.assert_array_equal(sg.evals[i, j, :cnt],
+                                      want.vals.numpy())
+        assert not sg.evals[i, j, cnt:].any()
+        nnz += cnt
+    assert nnz > 0 and sg.evals.shape[2] == max(
+        int(sg.eoff[i, j, -1]) for i in range(sg.d) for j in range(sg.d))
 
 
 def test_shard_arrays_and_solve_reject_a_mismatched_ring():

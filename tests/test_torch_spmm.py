@@ -241,6 +241,137 @@ def test_spmm_matches_jax_and_scipy(case, kind):
                                    atol=1e-5)
 
 
+def _edge_pair(s, bs, dtype):
+    """(host-built, torch-built) edge forms of `s` at block size `bs`, and
+    the value-kind matrix the torch builder read."""
+    ind = T.BsrMatrix.from_scipy(_structure(s), bs, dtype="bits",
+                                 device="cpu")
+    tb = T.BsrMatrix.from_scipy(s, bs, dtype=dtype, device="cpu")
+    host = T.edge_values_coo(s, ind, dtype=dtype)
+    return host, T.edge_values(tb.blk_vals, T.bsr_row_ptr(tb)), tb
+
+
+def _assert_edge_equal(a, b):
+    np.testing.assert_array_equal(a.words.numpy(), b.words.numpy())
+    np.testing.assert_array_equal(a.off.numpy(), b.off.numpy())
+    assert (a.vals is None) == (b.vals is None)
+    if a.vals is not None:
+        assert a.vals.dtype == b.vals.dtype
+        np.testing.assert_array_equal(a.vals.float().numpy(),
+                                      b.vals.float().numpy())
+
+
+def _unpack_edge(ev, row_ptr, blk_cols, bs, shape):
+    """Dense S from the edge form, in numpy: the i-th set bit of run
+    (block k, word-row g), in column then bit order, holds value
+    off[k * nw + g] + i."""
+    nw = bs // 32
+    rp = row_ptr.numpy()
+    words = ev.words.numpy()[: rp[-1]].view(np.uint32)
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    k, g, c, b = np.nonzero(bits)               # (block, g, column, bit)
+    run = k * nw + g
+    start = np.searchsorted(run, run)           # run's first set bit
+    off = ev.off.numpy()
+    at = off[run] + np.arange(run.size) - start
+    vals = (np.ones(run.size, np.float32) if ev.vals is None
+            else ev.vals.float().numpy()[at])
+    brow = np.repeat(np.arange(rp.size - 1), np.diff(rp))
+    dense = np.zeros(shape, np.float32)
+    dense[brow[k] * bs + 32 * g + b, blk_cols.numpy()[k] * bs + c] = vals
+    assert (np.diff(off) >= 0).all() and off[-1] == run.size
+    return dense
+
+
+@pytest.mark.parametrize("bs", [64, 128, 512])
+@pytest.mark.parametrize("dtype", [np.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_edge_builders_give_equal_arrays(case, dtype, bs):
+    """The host builder (COO on a bitmap matrix's blocks) and the torch
+    builder (value blocks and row_ptr) give equal words, values and run
+    offsets; the words are the bitmap blocks; padding blocks past
+    row_ptr[-1] give zero words and empty runs."""
+    rng = np.random.default_rng(8)
+    s = _banded(rng, **CASES[case])
+    host, tor, tb = _edge_pair(s, bs, dtype)
+    _assert_edge_equal(host, tor)
+    _assert_edge_equal(tor, tb.edge)             # from_scipy built it once
+    assert tor.vals.dtype == (torch.bfloat16 if dtype is torch.bfloat16
+                              else torch.float32)
+    assert tor.vals.numel() == s.nnz == int(tor.off[-1])
+    rp = T.bsr_row_ptr(tb)
+    if "empty" in case:                          # runs of an empty block-row
+        k0, k1 = int(rp[128 // bs]), int(rp[256 // bs])
+        assert int(tor.off[k0 * bs // 32]) == int(tor.off[k1 * bs // 32])
+    # padding blocks of nonzero cells past row_ptr[-1]
+    pad = torch.full((3, bs, bs), -1.0, dtype=tb.blk_vals.dtype)
+    padded = T.edge_values(torch.cat([tb.blk_vals, pad]), rp)
+    np.testing.assert_array_equal(padded.words.numpy()[: tb.num_blocks],
+                                  host.words.numpy())
+    assert not padded.words[tb.num_blocks:].any()
+    np.testing.assert_array_equal(padded.vals.float().numpy(),
+                                  host.vals.float().numpy())
+    off = padded.off.numpy()
+    np.testing.assert_array_equal(off[: host.off.numel()], host.off.numpy())
+    assert (off[host.off.numel():] == off[host.off.numel() - 1]).all()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_edge_form_unpacks_to_the_scipy_matrix(case, kind):
+    rng = np.random.default_rng(9)
+    s = _banded(rng, **CASES[case])
+    if kind == "int8":
+        s = _structure(s)
+    dtype = {"f32": np.float32, "bf16": torch.bfloat16,
+             "int8": np.int8}[kind]
+    tb = T.BsrMatrix.from_scipy(s, 128, dtype=dtype, device="cpu")
+    ev = tb.edge
+    assert (ev.vals is None) == (kind == "int8")
+    assert ev.words.dtype == torch.int32
+    assert ev.words.shape == (tb.num_blocks, 4, 128)
+    np.testing.assert_array_equal(
+        ev.words.numpy(),
+        T.pack_bits_blocks((tb.blk_vals != 0).numpy()))
+    want = np.zeros((tb.n_rows, tb.n_cols), np.float32)
+    ref = s.toarray()
+    if kind == "bf16":
+        ref = torch.from_numpy(ref).to(torch.bfloat16).float().numpy()
+    want[: s.shape[0], : s.shape[1]] = ref
+    got = _unpack_edge(ev, T.bsr_row_ptr(tb), tb.blk_cols, 128, want.shape)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_edge_spmm_plain_matches_jax(case):
+    """`edge_spmm_plain` on both builders' edge forms against JAX's row-grid
+    and block-grid SpMMs (interpret mode) on the value blocks, at
+    `tests/test_spmm.py`'s rtol 2e-5 / atol 1e-5; the block grid's unset
+    rows (block-rows with no block) are masked."""
+    rng = np.random.default_rng(10)
+    s = _banded(rng, **CASES[case])
+    host, tor, tb = _edge_pair(s, 128, np.float32)
+    jb = J.BsrMatrix.from_scipy(s, 128, dtype=np.float32)
+    x = rng.random((jb.n_cols, 128)).astype(np.float32)
+    xj = jnp.asarray(x)
+    jr = np.asarray(J._bsr_spmm_rows(jb.blk_vals, J.bsr_row_ptr(jb),
+                                     jb.blk_cols, xj, jb.n_rows, 128,
+                                     interpret=True))
+    jg = np.asarray(J._bsr_spmm(jb.blk_vals, jb.blk_rows, jb.blk_cols, xj,
+                                jb.n_rows, 128, interpret=True))
+    has = np.repeat(np.bincount(np.asarray(jb.blk_rows)[: jb.nb_real],
+                                minlength=jb.n_rows // 128) > 0, 128)
+    rp = T.bsr_row_ptr(tb)
+    for ev in (host, tor):
+        y = T.edge_spmm_plain(ev.words, rp, tb.blk_cols, ev.vals, ev.off,
+                              torch.from_numpy(x), tb.n_rows, 128).numpy()
+        assert y.shape == (jb.n_rows, 128) and y.dtype == np.float32
+        np.testing.assert_allclose(y, jr, rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(y[has], jg[has], rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(y[: s.shape[0]], s @ x[: s.shape[1]],
+                                   rtol=2e-5, atol=1e-5)
+
+
 def test_sparse_support_takes_ell_route_on_cpu(rng):
     s = _banded(rng, n=300)
     x = rng.random((300, 16)).astype(np.float32)
