@@ -107,16 +107,42 @@ Phases (each prints its own lines; any failure exits non-zero):
 14. the online training loop at B=128, N=256, load 0.9 with the ERGDPG2
    model in f32: T=20 and T=60 episodes give the per-slot marginal;
    losses finite, queues finite, >= 0 and 0 on padding, at least 2 LGS
-   launches a slot; the peak device memory.
+   launches a slot; the peak device memory;
+15. the iterative solvers: a `DQNAgent` (gcn2_dqn) with the ERGDPG2 l20
+   c32 checkpoint runs DIT, CGS and rollout (b=16) on 8 ER graphs of
+   100..256 nodes on the card and on the CPU: every schedule independent
+   and maximal, utilities within 1% of the CPU's (the count of equal
+   selections printed), one LGS launch per DIT step and one share=16
+   launch per rollout step, none in CGS;
+16. the diver family at full width: a `DiverAgent` with the ERUNI diver32
+   l20 c32 checkpoint: head scores on 8 graphs within rtol 1e-4 of the
+   CPU's; `batched_lgs_multi` (one launch of the LGS kernel with share=D)
+   on the card's guided weights at Q=32, D=32, N=256, with a mask per
+   variant, and at a ragged N=100, bit-equal to `batched_lgs_multi_plain`
+   (sel and rounds; utility within rtol 1e-6); `solve_mwis_iterative` and
+   `solve_mwis_bsf_many` (max_pops 8, batch_pops 8, group 4) on 16 graphs
+   in f32 and bf16 (independent schedules, the iterative ones maximal,
+   one LGS launch per pop batch, bf16 mean utility within 1% of f32);
+   `eval_graphs.main` (ERDQNB) and `rollout_main` (ERUNI) on a generated
+   32-graph ER set (every CSV row p > 0, graphs/s); the shared mode
+   bit-equal to share=1 on a `repeat_interleave`d adjacency, and timed as
+   phase 5 times B1, beside the plain version, that share=1 launch (the
+   copy counted) and the byte bound;
+17. the trainers: one epoch each of `train_dqn.main` (ERDQNB) and
+   `train_diver.main` (ERUNI diver32) over 32 generated ER graphs with
+   heuristic labels, in temporary model roots: losses finite, params
+   changed.
 
 The launch counts of the JSON line come from the main paths: phase 4 for the
 LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the int32
 neighbour-max (counts set to 0 just before, read just after); the LGS
 entry's `train_launches` gives the trainer paths' main runs, each counted
 the same way: phase 12's 40 solves, phase 13's `train_gdpg` epoch and phase
-14's T=60 episode. `model/` is only read: the trainers write into temporary
-copies. Runs of the sharded path across several cards (D > 1 over NCCL) need
-a multi-card machine; this script takes one card.
+14's T=60 episode; `multi_launches` phase 16's diver searches (the shared
+mode), and `eval_launches` phases 15 and 17. `model/` is only read: the
+trainers write into temporary copies. Runs of the sharded path across
+several cards (D > 1 over NCCL) need a multi-card machine; this script
+takes one card.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the one before it a JSON object with one entry per kernel.
@@ -126,6 +152,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -143,6 +170,8 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from distgcn_tpu_torch.agents import DQNAgent, build_state_arrays
+from distgcn_tpu_torch.agents_extra import DiverAgent, LegacyDQNAgent
+from distgcn_tpu_torch.cli import eval_graphs, train_diver, train_dqn
 from distgcn_tpu_torch.cli import train_gdpg
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.core.prep import normalize_adj
@@ -161,7 +190,9 @@ from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
                                               fused_cheb_layer_plain,
                                               pad_layer_params)
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
-from distgcn_tpu_torch.ops.lgs import (batched_lgs_plain, ell_lgs,
+from distgcn_tpu_torch.ops.lgs import (batched_lgs_multi,
+                                       batched_lgs_multi_plain,
+                                       batched_lgs_plain, ell_lgs,
                                        lgs_ranks)
 from distgcn_tpu_torch.ops.lgs_cuda import (batched_lgs_kernel,
                                             block_threads, launch,
@@ -184,6 +215,7 @@ from distgcn_tpu_torch.pipeline import (make_solve_pipeline,
 from distgcn_tpu_torch.rl.train import make_optimizer
 from distgcn_tpu_torch.sim.device_sim import (make_closed_loop,
                                               make_online_training_loop)
+from distgcn_tpu_torch.solvers import iterative
 from distgcn_tpu_torch.solvers.greedy import greedy_search
 from distgcn_tpu_torch.utils.config import Config
 from distgcn_tpu_torch.utils.directory import find_model_folder
@@ -1440,6 +1472,376 @@ def phase_online(dev, tree) -> dict:
             "peak_mib": peak / 2**20}
 
 
+# ---------------------------------------------------------------------------
+# the graph-set evaluation path: iterative solvers, the diver family, CLIs
+# ---------------------------------------------------------------------------
+
+DIVER_DIR = "model/result_ERUNI_deep_ld32_c32_l20_cheb1_diver32_mwis_diver"
+Q_MULTI, D_MULTI = 32, 32       # pop states x diver heads
+
+
+def diver_config(**kw) -> Config:
+    """The ERUNI diver32 l20 c32 checkpoint's configuration
+    (`find_model_folder(cfg, "diver", "model")` resolves to DIVER_DIR)."""
+    return Config(**dict(dict(
+        feature_size=32, hidden1=32, num_layer=20, diver_num=32,
+        max_degree=1, predict="mwis", pad_to=128, training_set="ERUNI",
+        backoff_prob=0.3, diver_out=32), **kw))
+
+
+@contextlib.contextmanager
+def counting(module, name):
+    """Counts the calls of module.name (a function the module looks up at
+    call time) while the context is open."""
+    fn = getattr(module, name)
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_iterative(dev) -> dict:
+    """Phase 15: DIT, CGS and rollout (b=16) with the ERGDPG2 l20 c32
+    checkpoint on the card, held against the same agent on the CPU."""
+    cfg = train_config(epsilon=0.0)
+    folder = find_model_folder(cfg, "dqn", "model")
+    agent = DQNAgent(cfg, device=dev)
+    cpu = DQNAgent(cfg, device="cpu")
+    check(agent.load(folder) and cpu.load(folder), "checkpoint load")
+    insts = er_instances(np.random.default_rng(150), 8)
+    solvers = {"dit": "solve_mwis_dit", "cgs": "solve_mwis_cit",
+               "rollout16": "solve_mwis_rollout_wrap"}
+    out = {}
+    for name, method in solvers.items():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with counting(iterative, "_masked_forward") as steps:
+            card = [getattr(agent, method)(a, w) for a, w in insts]
+        secs = time.perf_counter() - t0
+        launches = batched_lgs_kernel.launches
+        t0 = time.perf_counter()
+        ref = [getattr(cpu, method)(a, w) for a, w in insts]
+        cpu_s = time.perf_counter() - t0
+        for (a, w), (sel, util), (_, rutil) in zip(insts, card, ref):
+            check(schedule_ok_host(sel, a), f"a {name} schedule is not "
+                  "independent and maximal")
+            check(abs(util - w[list(sel)].sum()) <= 1e-5 * max(util, 1.0),
+                  f"{name} utility is not the schedule's weight")
+            check(abs(util - rutil) <= 0.01 * abs(rutil),
+                  f"{name} utility {util} vs the CPU's {rutil}")
+        want = 0 if name == "cgs" else steps[0]
+        check(launches == want, f"{name}: {launches} LGS launches in "
+              f"{steps[0]} steps (want {want})")
+        equal = sum(s == r for (s, _), (r, _) in zip(card, ref))
+        mean_u = float(np.mean([u for _, u in card]))
+        rel = mean_u / float(np.mean([u for _, u in ref])) - 1.0
+        print(f"phase 15: {name} (ERGDPG2 l20 c32, 8 ER graphs of "
+              f"{N_MIN}..{N} nodes): schedules independent+maximal, "
+              f"{equal}/8 selections equal to the CPU's, mean utility "
+              f"{mean_u:.6f} ({rel:+.3e} vs CPU), {steps[0]} steps, "
+              f"{launches} LGS launches; card {secs:.3f} s, CPU "
+              f"{cpu_s:.3f} s", flush=True)
+        out[name] = {"launches": launches, "steps": steps[0],
+                     "equal": equal, "card_s": secs}
+    return out
+
+
+def multi_inputs(agent, dev, n_pad, n_lo, seed):
+    """Q_MULTI partial states of seeded ER graphs padded to n_pad: the
+    masked adjacencies, the diver heads' guided weights [Q, D, n_pad] from
+    the agent's GCN, and the remaining-node masks."""
+    rng = np.random.default_rng(seed)
+    adjs = []
+    masks = np.zeros((Q_MULTI, n_pad), np.float32)
+    wts = np.zeros((Q_MULTI, n_pad), np.float32)
+    for i in range(Q_MULTI):
+        n = int(rng.integers(n_lo, n_pad + 1))
+        adjs.append(er_graph(n, float(rng.uniform(0.05, 0.1)), rng))
+        masks[i, :n] = rng.random(n) < 0.8
+        wts[i, :n] = rng.random(n)
+    dense = agent._resident_adjs(adjs, n_pad)
+    mask = torch.from_numpy(masks).to(dev)
+    w = torch.from_numpy(wts * masks).to(dev)
+    bmask = mask > 0
+    madj = (dense * (bmask[:, :, None] & bmask[:, None, :]).to(torch.int8)
+            ).contiguous()
+    with torch.no_grad():
+        _, probs = agent._bsf_eval(dense, torch.arange(Q_MULTI, device=dev),
+                                   w, mask)
+    guided = (probs.transpose(1, 2) * w[:, None, :]).contiguous()
+    return madj, guided, bmask
+
+
+def multi_vs_plain(madj, guided, mask, what) -> float:
+    before = batched_lgs_kernel.launches
+    sel, util, rounds = batched_lgs_multi(madj, guided, mask)
+    check(batched_lgs_kernel.launches == before + 1,
+          f"batched_lgs_multi ({what}) is not one kernel launch")
+    psel, putil, prounds = batched_lgs_multi_plain(madj, guided, mask)
+    torch.cuda.synchronize()
+    check(torch.equal(sel, psel), f"shared mode ({what}): selections differ "
+          "from batched_lgs_multi_plain")
+    check(int(rounds) == int(prounds), f"shared mode ({what}): rounds "
+          f"{int(rounds)} vs {int(prounds)}")
+    check(torch.allclose(util, putil, rtol=1e-6, atol=1e-6),
+          f"shared mode ({what}): utility")
+    return float((util - putil).abs().max())
+
+
+def phase_diver(dev, tmp) -> dict:
+    """Phase 16: the diver family at full width (ERUNI diver32 l20 c32),
+    the kernel's shared mode against its plain version, the diver
+    searches, and the two evaluation CLIs on a generated ER set."""
+    cfg = diver_config()
+    folder = find_model_folder(cfg, "diver", "model")
+    check(os.path.samefile(folder, DIVER_DIR), f"{folder} is not {DIVER_DIR}")
+    agent = DiverAgent(cfg, device=dev)
+    cpu = DiverAgent(cfg, device="cpu")
+    check(agent.load(folder) and cpu.load(folder), "diver checkpoint load")
+    insts = er_instances(np.random.default_rng(160), 16)
+    err = 0.0
+    for a, w in insts[:8]:
+        got = agent.head_scores(agent.makestate(a, w.reshape(-1, 1)))
+        want = cpu.head_scores(cpu.makestate(a, w.reshape(-1, 1)))
+        check(got.shape == (a.shape[0], 32), "head_scores shape")
+        check(np.allclose(got, want, rtol=1e-4, atol=1e-6),
+              "head scores differ from the CPU's beyond rtol 1e-4")
+        err = max(err, float(np.abs(got - want).max()))
+    # the shared mode on the card's guided weights: shared masks, a mask
+    # per variant, and a ragged N
+    madj, guided, bmask = multi_inputs(agent, dev, N, N_MIN, 161)
+    errs = [multi_vs_plain(madj, guided, bmask, "Q=32 D=32 N=256")]
+    vmask = bmask[:, None, :] & (torch.rand(
+        guided.shape, generator=torch.Generator().manual_seed(162)
+    ).to(dev) < 0.7)
+    errs.append(multi_vs_plain(madj, guided, vmask, "per-variant masks"))
+    m100 = multi_inputs(agent, dev, 100, 60, 163)
+    errs.append(multi_vs_plain(*m100, "N=100"))
+    print(f"phase 16: DiverAgent ERUNI diver32 l20 c32: head scores on 8 "
+          f"graphs within rtol 1e-4 of the CPU's (max abs diff {err:.3g}); "
+          f"batched_lgs_multi (shared mode, one launch) bit-equal to "
+          f"batched_lgs_multi_plain at Q={Q_MULTI} D={D_MULTI} N={N}, with "
+          f"per-variant masks, and at N=100 (utility max abs diff "
+          f"{max(errs):.3g})", flush=True)
+
+    out = {"head_err": err}
+    utils = {}
+    reset_launch_counts()
+    for dt in ("float32", "bfloat16"):
+        ag = agent if dt == "float32" else DiverAgent(
+            diver_config(compute_dtype=dt), device=dev)
+        if dt != "float32":
+            check(ag.load(folder), "diver checkpoint load")
+        before = batched_lgs_kernel.launches
+        t0 = time.perf_counter()
+        it = [ag.solve_mwis_iterative(a, w) for a, w in insts]
+        it_s = time.perf_counter() - t0
+        it_launches = batched_lgs_kernel.launches - before
+        check(len(insts) <= it_launches <= 5 * len(insts),
+              f"solve_mwis_iterative: {it_launches} LGS launches")
+        before = batched_lgs_kernel.launches
+        with counting(ag, "_eval_heads_resident") as evals:
+            t0 = time.perf_counter()
+            many = ag.solve_mwis_bsf_many(insts, max_pops=8, batch_pops=8,
+                                          group=4)
+            many_s = time.perf_counter() - t0
+        many_launches = batched_lgs_kernel.launches - before
+        check(many_launches == evals[0], f"bsf_many: {many_launches} LGS "
+              f"launches for {evals[0]} pop batches")
+        maximal = 0
+        for (a, w), (s1, u1), (s2, u2) in zip(insts, it, many):
+            check(schedule_ok_host(s1, a), "a solve_mwis_iterative schedule "
+                  "is not independent and maximal")
+            check(independent(s2, a), "a bsf schedule is not independent")
+            maximal += schedule_ok_host(s2, a)
+            for s, u in ((s1, u1), (s2, u2)):
+                check(abs(u - w[list(s)].sum()) <= 1e-9 * max(u, 1.0),
+                      "diver utility is not the schedule's weight")
+        utils[dt] = (float(np.mean([u for _, u in it])),
+                     float(np.mean([u for _, u in many])))
+        print(f"phase 16: {dt}: solve_mwis_iterative on 16 graphs mean "
+              f"utility {utils[dt][0]:.6f} ({it_launches} LGS launches, "
+              f"{it_s:.3f} s); solve_mwis_bsf_many (max_pops 8, batch_pops "
+              f"8, group 4) mean utility {utils[dt][1]:.6f}, {evals[0]} pop "
+              f"batches = {many_launches} LGS launches, {maximal}/16 "
+              f"schedules maximal (backoff children exclude nodes), "
+              f"{many_s:.3f} s", flush=True)
+    launches = batched_lgs_kernel.launches
+    for k, what in enumerate(("solve_mwis_iterative", "bsf_many")):
+        rel = utils["bfloat16"][k] / utils["float32"][k] - 1.0
+        check(abs(rel) <= 0.01, f"bf16 {what} mean utility {rel:+.3%} "
+              "from f32")
+        out[f"bf16_{what}_rel"] = rel
+    out["launches"] = launches
+
+    # the two evaluation CLIs on a generated 32-graph ER set
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "eval_set")
+    generate_graph_dataset(data, "ER", sizes=(100, 150, 200, 256),
+                           ps=(0.05, 0.1), n_per_config=4, seed=164,
+                           label=False)
+    gen_s = time.perf_counter() - t0
+    common = [f"--datapath={data}", "--model_root=model", "--max_degree=1",
+              "--predict=mwis", "--num_layer=20", "--hidden1=32",
+              f"--output_dir={tmp}/eval_out", f"--device={dev}"]
+    runs = {
+        "main": common + ["--training_set=ERDQNB", "--feature_size=1",
+                          "--diver_num=1", "--batch_size=32"],
+        "rollout_main": common + ["--training_set=ERUNI",
+                                  "--feature_size=32", "--diver_num=32",
+                                  "--rollout=1", "--max_pops=8",
+                                  "--batch_pops=8", "--group=4"]}
+    csvs = {"main": "result_ERDQNB_deep_ld1_c32_l20_cheb1_diver1_mwis_dqn"
+                    "_eval_set.csv",
+            "rollout_main": "result_ERUNI_deep_ld32_c32_l20_cheb1_diver32"
+                            "_mwis_diver_rs8_eval_set.csv"}
+    for name, argv in runs.items():
+        secs, mean = sync_s(lambda: eval_graphs.main(argv))
+        rows = eval_graphs.read_csv(os.path.join(tmp, "eval_out",
+                                                 csvs[name]))
+        check(len(rows) == 32 and all(p > 0 for _, p in rows),
+              f"eval_graphs.{name}: CSV rows {rows}")
+        out[f"{name}_graphs_per_s"] = 32 / secs
+        print(f"phase 16: eval_graphs.{name} on 32 generated ER graphs of "
+              f"100..256 nodes (generated in {gen_s:.3f} s): mean ratio vs "
+              f"greedy {mean:.6f}, every row p > 0, {secs:.3f} s, "
+              f"{32 / secs:.2f} graphs/s", flush=True)
+    out["agent"] = agent
+    return out
+
+
+def independent(sel, adj) -> bool:
+    idx = sorted(sel)
+    return sp.csr_matrix(adj)[idx][:, idx].nnz == 0
+
+
+def phase_multi_timing(dev, agent) -> dict:
+    """B1's shared mode timed as phase 5 times B1 (CUDA-graph replays, L2
+    flushed) at Q=32, D=32, N=256 beside the plain version, the kernel on a
+    repeat_interleave'd [Q*D, N, N] adjacency (the copy counted) and the
+    byte bound."""
+    madj, guided, bmask = multi_inputs(agent, dev, N, N_MIN, 170)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = bmask[:, None, :].expand(Q_MULTI, D_MULTI, N).reshape(
+        Q_MULTI * D_MULTI, N).contiguous()
+    flat = guided.reshape(Q_MULTI * D_MULTI, N)
+    # share=D against share=1 (the launch every other path makes) on the
+    # repeated adjacency: the same outputs, bit for bit
+    shared = batched_lgs_kernel(madj, flat, rows, share=D_MULTI)
+    one = batched_lgs_kernel(madj.repeat_interleave(D_MULTI, dim=0), flat,
+                             rows, share=1)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(shared, one)),
+          "share=32 differs from share=1 on the repeated adjacency")
+    ms = graph_ms(lambda: batched_lgs_multi(madj, guided, bmask), 200, flush)
+    repeat_ms = graph_ms(lambda: batched_lgs_kernel(
+        madj.repeat_interleave(D_MULTI, dim=0), flat, rows), 200, flush)
+    plain_ms = event_ms(lambda: batched_lgs_multi_plain(madj, guided, bmask),
+                        10, flush)
+    nbytes = (Q_MULTI * N * N + Q_MULTI * D_MULTI * N * (4 + 1 + 1)
+              + Q_MULTI * D_MULTI * (4 + 4))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 16: lgs shared mode Q={Q_MULTI} D={D_MULTI} N={N}: sel, "
+          f"util and rounds bit-equal to share=1 on the repeated adjacency; "
+          f"L2 flushed: batched_lgs_multi (one launch, share={D_MULTI}) "
+          f"{ms:.4f} ms; batched_lgs_kernel on a repeat_interleave'd "
+          f"[{Q_MULTI * D_MULTI},{N},{N}] adjacency, the copy counted, "
+          f"{repeat_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({nbytes} bytes), at "
+          f"{bound_ms / ms:.2%} of the bound", flush=True)
+    return {"multi_ms": ms, "multi_repeat_ms": repeat_ms,
+            "multi_plain_ms": plain_ms, "multi_bound_ms": bound_ms}
+
+
+def phase_trainers(dev, tmp) -> dict:
+    """Phase 17: one epoch of `train_dqn.main` and of `train_diver.main`
+    over small generated ER sets (heuristic labels), each in a temporary
+    model root holding a copy of its checkpoint."""
+    t0 = time.perf_counter()
+    for sub, per, seed in (("tr_train", 4, 171), ("tr_test", 1, 172)):
+        generate_graph_dataset(os.path.join(tmp, sub), "ER",
+                               sizes=(100, 150, 200, 256), ps=(0.05, 0.1),
+                               n_per_config=per, seed=seed, label=True)
+    gen_s = time.perf_counter() - t0
+    data = [f"--datapath={tmp}/tr_train", f"--test_datapath={tmp}/tr_test",
+            "--max_degree=1", "--predict=mwis", "--num_layer=20",
+            "--hidden1=32", "--epochs=1", f"--learning_rate={TRAIN_LR}",
+            f"--device={dev}"]
+    out = {}
+    # train_dqn: the ERDQNB l20 c32 checkpoint (gcn_dqn), replays of 16
+    src = "model/result_ERDQNB_deep_ld1_c32_l20_cheb1_diver1_mwis_dqn"
+    root = os.path.join(tmp, "dqn_models")
+    shutil.copytree(src, os.path.join(root, os.path.basename(src)))
+    argv = data + ["--training_set=ERDQNB", "--feature_size=1",
+                   "--diver_num=1", "--epsilon=0.2", "--replay_every=16",
+                   "--replay_batch=16", f"--model_root={root}"]
+    agent = LegacyDQNAgent(Config.from_args(argv), device=dev)
+    check(agent.load(os.path.join(root, os.path.basename(src))),
+          "ERDQNB checkpoint load")
+    before = {k: v.clone() for k, v in agent.model.state_dict().items()}
+    losses = []
+    replay = agent.replay
+
+    def recorded_replay(batch_size):
+        losses.append(replay(batch_size))
+        return losses[-1]
+
+    agent.replay = recorded_replay
+    reset_launch_counts()
+    secs, _ = sync_s(lambda: train_dqn.main(argv, agent=agent))
+    launches = batched_lgs_kernel.launches
+    check(len(losses) == 2 and all(x is not None and np.isfinite(x)
+                                   for x in losses), f"losses {losses}")
+    moved = max(float((v - before[k]).abs().max())
+                for k, v in agent.model.state_dict().items())
+    check(moved > 0, "train_dqn: the params did not change")
+    check(launches >= 32, f"train_dqn: {launches} LGS launches")
+    print(f"phase 17: train_dqn.main, ERDQNB l20 c32, one epoch of 32 ER "
+          f"graphs (generated with heuristic labels in {gen_s:.3f} s): "
+          f"{secs:.3f} s, replay losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, params moved by up "
+          f"to {moved:.3g}, {launches} LGS launches",
+          flush=True)
+    out["dqn_s"], out["dqn_launches"] = secs, launches
+    # train_diver: the ERUNI diver32 checkpoint, batches of 16
+    root = os.path.join(tmp, "diver_models")
+    shutil.copytree(DIVER_DIR, os.path.join(root,
+                                            os.path.basename(DIVER_DIR)))
+    argv = data + ["--training_set=ERUNI", "--feature_size=32",
+                   "--diver_num=32", "--device_batch=16",
+                   f"--model_root={root}"]
+    log = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        secs, best = sync_s(lambda: train_diver.main(argv))
+    launches = batched_lgs_kernel.launches
+    text = log.getvalue()
+    loss = float(text.split("Loss: ")[1].split()[0])
+    check(np.isfinite(loss) and np.isfinite(best), f"train_diver: {text}")
+    # the epoch's checkpoint (the gate starts at 0) against the original
+    before = load_params(os.path.join(DIVER_DIR, "params.npz"))
+    after = load_params(os.path.join(root, os.path.basename(DIVER_DIR),
+                                     "params.npz"))
+    moved = max(float(np.abs(after[layer][k] - v).max())
+                for layer, leaves in before.items()
+                for k, v in leaves.items())
+    check(moved > 0, "train_diver: the params did not change")
+    check(launches >= 8, f"train_diver: {launches} LGS launches")
+    print(f"phase 17: train_diver.main, ERUNI diver32 l20 c32, one epoch of "
+          f"32 labeled ER graphs in batches of 16: {secs:.3f} s, loss "
+          f"{loss:.6f}, best test ratio {best:.6f}, params moved by up to "
+          f"{moved:.3g}, {launches} LGS launches", flush=True)
+    out["diver_s"], out["diver_launches"] = secs, launches
+    return out
+
+
 COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
            "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
            "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
@@ -1521,6 +1923,27 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.3f} s wall; {result}",
                   flush=True)
     kernels[0]["train_launches"] = train
+    # the graph-set evaluation path: each phase counts its own main path
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        it = phase_iterative(dev)
+        print(f"phase 15: {time.perf_counter() - t0:.3f} s wall", flush=True)
+        t0 = time.perf_counter()
+        diver = phase_diver(dev, tmp)
+        check(diver["launches"] > 0, "the diver path never launched the "
+              "LGS kernel")
+        kernels[0].update(phase_multi_timing(dev, diver.pop("agent")))
+        kernels[0]["multi_launches"] = diver["launches"]
+        print(f"phase 16: {time.perf_counter() - t0:.3f} s wall; {diver}",
+              flush=True)
+        t0 = time.perf_counter()
+        trainers = phase_trainers(dev, tmp)
+        print(f"phase 17: {time.perf_counter() - t0:.3f} s wall; "
+              f"{trainers}", flush=True)
+    kernels[0]["eval_launches"] = {
+        **{k: v["launches"] for k, v in it.items()},
+        "train_dqn": trainers["dqn_launches"],
+        "train_diver": trainers["diver_launches"]}
     kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)

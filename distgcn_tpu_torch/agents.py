@@ -19,7 +19,7 @@ Training semantics preserved (mwis_gdpg_call.py):
 
 The replay minibatch is drawn from the agent's own `random.Random(seed)`
 (the JAX package draws from the global `random` module). The iterative
-solvers (DIT, CGS, rollout) are not ported yet (ROADMAP queue A, item 11).
+solvers (DIT, CGS, rollout) are `solvers/iterative.py`'s.
 """
 
 from __future__ import annotations
@@ -152,6 +152,9 @@ class MWISSolver:
                   f"use_bias={arch['use_bias']}")
         if self.model_family == "gcn2_dqn":
             out_flag, diver = 1, cfg.diver_num
+        elif self.model_family == "deep_diver":
+            out_flag = 2 * cfg.diver_num
+            diver = max(arch["out_dim"] // 2, 1)
         else:
             out_flag, diver = cfg.diver_num, arch["out_dim"]
         dims_match = (arch["feature_size"] == cfg.feature_size
@@ -339,16 +342,23 @@ class MWISSolver:
         sel = sel[0, :n].cpu().numpy()
         return set(np.nonzero(sel == 1)[0].tolist()), float(util[0])
 
-    # the iterative / rollout solvers (solvers/iterative.py) come later
-    def _iterative(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the iterative solvers (DIT, CGS, rollout) are not ported yet "
-            "(ROADMAP queue A, item 11)")
+    # delegated iterative / rollout solvers (solvers/iterative.py)
+    def solve_mwis_dit(self, adj_0, wts_0, train: bool = False,
+                       grd: float = 1.0):
+        from distgcn_tpu_torch.solvers.iterative import solve_dit
+        return solve_dit(self, adj_0, wts_0)
 
-    solve_mwis_dit = _iterative
-    solve_mwis_cit_wrap = _iterative
-    solve_mwis_cit = _iterative
-    solve_mwis_rollout_wrap = _iterative
+    def solve_mwis_cit_wrap(self, adj_0, wts_0, train: bool = False,
+                            grd: float = 1.0):
+        from distgcn_tpu_torch.solvers.iterative import solve_cgs
+        return solve_cgs(self, adj_0, wts_0)
+
+    solve_mwis_cit = solve_mwis_cit_wrap
+
+    def solve_mwis_rollout_wrap(self, adj_0, wts_0, train: bool = False,
+                                grd: float = 1.0, b: int = 16):
+        from distgcn_tpu_torch.solvers.iterative import solve_rollout
+        return solve_rollout(self, adj_0, wts_0, b=b)
 
     # -------------------------------------------------------------- memory
     def memorize(self, state, act_vals, solu, next_state, reward) -> None:
@@ -406,4 +416,9 @@ class DQNAgent(MWISSolver):
             self.epsilon *= self.epsilon_decay
         return loss
 
-    solve_mwis_cgs_train = MWISSolver._iterative
+    def solve_mwis_cgs_train(self, adj_0, wts_0, train: bool = False,
+                             grd: float = 1.0):
+        """Episodic centralized-greedy rollout with backtracked discounted
+        rewards (mwis_gdpg_call.py:778-839)."""
+        from distgcn_tpu_torch.solvers.iterative import solve_cgs_episodic
+        return solve_cgs_episodic(self, adj_0, wts_0, train=train, grd=grd)

@@ -49,6 +49,13 @@
 //    order) in f64 and written in the weights' type, so two launches are
 //    bit-equal.
 //
+// Shared adjacency (`share` > 1): weight rows g = q * share + d, d < share,
+// all read adjacency q, so D weight variants of one graph (the diver
+// heads' guided completions, the rollout's branches; ops/lgs.py's
+// batched_lgs_multi) need no D-fold copy of it. Each CTA still packs its
+// own rows (scratch per weight row), and adjacency q starts q * n * n
+// bytes from the first, so the alignment test for vec holds for all.
+//
 // Where the rows live: in dynamic shared memory while they fit beside the
 // rest (N up to 1,312: 11.4 KB at N=256, 144 KB at N=1024); above that the
 // wrapper passes a device-memory scratch per graph, the rows [n][words|1]
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                int wt, const uint8_t* __restrict__ mask,
                int8_t* __restrict__ sel, void* __restrict__ util,
                int32_t* __restrict__ rounds, uint32_t* __restrict__ scratch,
-               int n, int cap, int vec) {
+               int n, int cap, int vec, int share) {
   constexpr int kLoads = 4;  // 16-byte chunks a thread loads at a time
   constexpr int kScan = 8;   // row words a round's scan loads at a time
   extern __shared__ __align__(16) uint32_t smem[];
@@ -224,7 +231,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // (two buffers). vec = 16 (n % 16 == 0, adj 16-byte aligned): a chunk is
   // one 16-byte load; vec = 4 (n % 4 == 0): four 4-byte loads; else 16
   // byte loads.
-  const int8_t* a = adj + base_n * n;
+  const int8_t* a = adj + static_cast<size_t>(g / share) * n * n;
   const int cpr = (n + 15) >> 4;
   const int node = TPN == 4 ? tid >> 2 : tid;  // this thread's first row
   const int part = TPN == 4 ? tid & 3 : 0;
@@ -611,18 +618,20 @@ bool rows_in_smem(int n) {
 
 extern "C" {
 
-// adj int8 [batch, n, n] (contiguous; > 0 is an edge), wts [batch, n] of
-// type `wtype` (WeightType), mask uint8/bool [batch, n] -> sel int8
-// [batch, n], util [batch] of type `wtype` (null: not computed), rounds
-// int32 [batch]. scratch: null when rows_in_smem(n), else u32
-// [batch, n * (words | 1) + n] of device memory. Launches on `stream`
-// without synchronising; returns the cudaError_t of the launch
-// (0 = success).
+// adj int8 [batch / share, n, n] (contiguous; > 0 is an edge), wts
+// [batch, n] of type `wtype` (WeightType), mask uint8/bool [batch, n] ->
+// sel int8 [batch, n], util [batch] of type `wtype` (null: not computed),
+// rounds int32 [batch]. Weight rows g and h share an adjacency iff
+// g / share == h / share (share = 1: one adjacency per row). scratch: null
+// when rows_in_smem(n), else u32 [batch, n * (words | 1) + n] of device
+// memory (per weight row). Launches on `stream` without synchronising;
+// returns the cudaError_t of the launch (0 = success).
 int lgs_launch(const void* adj, const void* wts, const void* mask, void* sel,
                void* util, void* rounds, void* scratch, int batch, int n,
-               int cap, int wtype, void* stream) {
+               int cap, int wtype, int share, void* stream) {
   const bool smem_rows = rows_in_smem(n);
   if (batch < 1 || n < 1 || n > kMaxN || wtype < kF32 || wtype > kF16 ||
+      share < 1 || batch % share != 0 ||
       (scratch == nullptr && !smem_rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -637,7 +646,7 @@ int lgs_launch(const void* adj, const void* wts, const void* mask, void* sel,
   const int which = !smem_rows ? 0 : n > kMaxThreads ? 1 : n > kQuadN ? 2 : 3;
   void (*const kernels[4])(const int8_t*, const void*, int, const uint8_t*,
                            int8_t*, void*, int32_t*, uint32_t*, int, int,
-                           int) = {
+                           int, int) = {
       lgs_kernel<1, false, false>, lgs_kernel<1, true, false>,
       lgs_kernel<1, true, true>, lgs_kernel<4, true, true>};
   auto kernel = kernels[which];
@@ -658,7 +667,7 @@ int lgs_launch(const void* adj, const void* wts, const void* mask, void* sel,
       static_cast<const int8_t*>(adj), wts, wtype,
       static_cast<const uint8_t*>(mask), static_cast<int8_t*>(sel), util,
       static_cast<int32_t*>(rounds), static_cast<uint32_t*>(scratch), n,
-      cap, vec);
+      cap, vec, share);
   return static_cast<int>(cudaGetLastError());
 }
 

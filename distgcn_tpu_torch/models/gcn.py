@@ -7,10 +7,15 @@ Q-net families, which share topology and differ in head activation/bias:
 - gcn2_dqn: the activation applies to every layer including the head, and
   every layer has a bias.
 
+`MLP2` is the graph-blind dense Q-net (family mlp2) and `GCNDeepDiver` the
+deep GCN with 2*diver_num logits read as diver_num two-class heads
+(family deep_diver).
+
 `params_from_jax` turns a JAX-package parameter tree (nested dicts of numpy
 arrays, from Flax ``init`` or a ``model/*/params.npz``) into this module's
-``state_dict`` and `params_to_jax` turns one back: the layer names (``gc{i}``, ``skip``) and parameter names
-(``w_{k}``, ``bias``, ``kernel``) are the JAX package's own.
+``state_dict`` and `params_to_jax` turns one back: the layer names
+(``gc{i}``, ``dense{i}``, ``skip``) and parameter names (``w_{k}``,
+``weights``, ``bias``, ``kernel``) are the JAX package's own.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from distgcn_tpu_torch.models.layers import (GraphConvolution,
+from distgcn_tpu_torch.models.layers import (Dense, GraphConvolution,
                                              glorot_uniform, identity,
                                              leaky_relu02)
 from distgcn_tpu_torch.utils.device import resolve_device
@@ -120,8 +125,79 @@ class ChebGCN(nn.Module):
         return out
 
 
+class MLP2(nn.Module):
+    """n-layer dense Q-net (gcn/models.py:167-298), graph-blind: layers
+    ``dense1..denseL`` with bias, leaky_relu(0.2) on the hidden layers, an
+    identity head and an optional dueling combine (unmasked node means, as
+    in the JAX package). forward(x [B, N, F]) -> [B, N, out_dim]."""
+
+    def __init__(self, in_dim: int, num_layer: int = 2, hidden_dim: int = 32,
+                 out_dim: int = 1, act: Callable = leaky_relu02,
+                 is_dual: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layer = num_layer
+        self.is_dual = is_dual
+        width = out_dim + 1 if is_dual else out_dim
+        dims = [in_dim] + [hidden_dim] * (num_layer - 1) + [width]
+        for i in range(num_layer):
+            last = i == num_layer - 1
+            self.add_module(f"dense{i + 1}", Dense(
+                dims[i], dims[i + 1], act=identity if last else act,
+                use_bias=True, generator=generator))
+
+    def forward(self, x):
+        h = x
+        for i in range(self.num_layer):
+            h = getattr(self, f"dense{i + 1}")(h)
+        if self.is_dual:
+            return dueling_head(h)
+        return h
+
+
+class GCNDeepDiver(nn.Module):
+    """GCN_DEEP_DIVER (gcn/models.py:301-438): ReLU ChebGCN layers
+    ``gc1..gcL`` with no bias, a linear head of width 2*diver_num (diver_num
+    two-class heads at interleaved column pairs), an optional `SkipHead`,
+    and the output masked.
+
+    forward(x [B, N, F], supports [B, S, N, N], mask [B, N] | None)
+    -> [B, N, 2 * diver_num].
+    """
+
+    use_bias = False
+
+    def __init__(self, in_dim: int, num_layer: int = 20, hidden_dim: int = 32,
+                 diver_num: int = 32, num_supports: int = 2,
+                 skip: bool = False, wts_init: str = "random",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layer = num_layer
+        self.use_skip = skip
+        dims = [in_dim] + [hidden_dim] * (num_layer - 1) + [2 * diver_num]
+        for i in range(num_layer):
+            last = i == num_layer - 1
+            self.add_module(f"gc{i + 1}", GraphConvolution(
+                dims[i], dims[i + 1], num_supports,
+                act=identity if last else torch.relu, generator=generator))
+        if skip:
+            self.add_module("skip", SkipHead(in_dim, 2 * diver_num, wts_init,
+                                             generator))
+
+    def forward(self, x, supports, mask=None):
+        out = x
+        for i in range(self.num_layer):
+            out = getattr(self, f"gc{i + 1}")(out, supports)
+        if self.use_skip:
+            out = self.get_submodule("skip")(x, out)
+        if mask is not None:
+            out = out * mask[..., None]
+        return out
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (nested dicts of arrays) -> ChebGCN state_dict."""
+    """JAX parameter tree (nested dicts of arrays) -> the port model's
+    state_dict (any family: the layer and parameter names are JAX's)."""
     state = {}
     for layer, leaves in tree.items():
         for name, value in leaves.items():
@@ -150,35 +226,44 @@ def make_model_from_config(cfg, family: str = "gcn_dqn",
                            is_dual: bool = False,
                            params: Optional[Mapping] = None,
                            generator: Optional[torch.Generator] = None,
-                           device=None) -> ChebGCN:
+                           device=None) -> nn.Module:
     """Build the model matching a reference config, on `device`.
 
-    family: 'gcn_dqn' (linear head, no bias) or 'gcn2_dqn' (act on head,
-    bias on every layer). `cfg.skip` drives the concat-skip head on
-    gcn_dqn; `is_dual` the dueling combine on gcn2_dqn.
+    family: 'gcn_dqn' (linear head, no bias), 'gcn2_dqn' (act on head,
+    bias on every layer), 'mlp2' (`MLP2`) or 'deep_diver'
+    (`GCNDeepDiver`). `cfg.skip` drives the concat-skip head on gcn_dqn
+    and deep_diver; `is_dual` the dueling combine on gcn2_dqn and mlp2.
 
-    params: an optional ``state_dict`` (see `params_from_jax`). Its bias
-    structure overrides the family's, then it is loaded. Without it the
-    weights are drawn from `generator` (default: seeded with `cfg.seed`).
+    params: an optional ``state_dict`` (see `params_from_jax`). On the
+    ChebGCN families its bias structure overrides the family's; then it
+    is loaded. Without it the weights are drawn from `generator` (default:
+    seeded with `cfg.seed`).
     """
     dev = resolve_device(device)
-    if family in ("mlp2", "deep_diver"):
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP queue A, "
-            "item 4: MLP2 and GCNDeepDiver)")
-    if family not in ("gcn_dqn", "gcn2_dqn"):
+    if family not in ("gcn_dqn", "gcn2_dqn", "mlp2", "deep_diver"):
         raise ValueError(f"unknown model family {family}")
-    gcn2 = family == "gcn2_dqn"
-    use_bias = gcn2 if params is None else _has_bias(params)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    model = ChebGCN(in_dim=cfg.feature_size, num_layer=cfg.num_layer,
-                    hidden_dim=cfg.hidden1,
-                    out_dim=1 if gcn2 else cfg.diver_num,
-                    num_supports=cfg.num_supports, final_act_same=gcn2,
-                    use_bias=use_bias, wts_init=cfg.wts_init,
-                    skip=cfg.skip and not gcn2, is_dual=is_dual and gcn2,
-                    generator=generator)
+    if family == "mlp2":
+        model = MLP2(in_dim=cfg.feature_size, num_layer=cfg.num_layer,
+                     hidden_dim=cfg.hidden1, out_dim=cfg.diver_num,
+                     is_dual=is_dual, generator=generator)
+    elif family == "deep_diver":
+        model = GCNDeepDiver(in_dim=cfg.feature_size,
+                             num_layer=cfg.num_layer, hidden_dim=cfg.hidden1,
+                             diver_num=cfg.diver_num,
+                             num_supports=cfg.num_supports, skip=cfg.skip,
+                             wts_init=cfg.wts_init, generator=generator)
+    else:
+        gcn2 = family == "gcn2_dqn"
+        use_bias = gcn2 if params is None else _has_bias(params)
+        model = ChebGCN(in_dim=cfg.feature_size, num_layer=cfg.num_layer,
+                        hidden_dim=cfg.hidden1,
+                        out_dim=1 if gcn2 else cfg.diver_num,
+                        num_supports=cfg.num_supports, final_act_same=gcn2,
+                        use_bias=use_bias, wts_init=cfg.wts_init,
+                        skip=cfg.skip and not gcn2, is_dual=is_dual and gcn2,
+                        generator=generator)
     if params is not None:
         model.load_state_dict(params)
     return model.to(dev)

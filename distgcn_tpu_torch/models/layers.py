@@ -7,6 +7,7 @@ Port of `distgcn_tpu/models/layers.py` (the reference's `gcn/layers.py`):
   [B, S, N, N]. Params ``w_{k}`` [fin, fout] and ``bias`` [fout], the JAX
   package's names, so parameter trees carry over key for key.
 - `Dense`: ``y = act(X @ W (+ b))``.
+- `maxpool_aggregate`: per-feature masked neighbour max-aggregation.
 
 Initialization: 'random' = glorot uniform U(±sqrt(6/(fi+fo))), drawn from an
 explicit `torch.Generator`; 'zeros'. Dropout is not ported: the JAX
@@ -102,3 +103,12 @@ class Dense(nn.Module):
         if self.bias is not None:
             out = out + self.bias
         return self.act(out)
+
+
+def maxpool_aggregate(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-feature masked neighbour max-aggregation:
+    ``out[..., v, f] = max_u x[..., v, u] * y[..., u, f]``
+    over x [..., N, N] and y [..., N, F] (the reference's unused
+    `maxpooling` op, without its final concat/reshape layout quirk, as in
+    the JAX package)."""
+    return (x[..., :, :, None] * y[..., None, :, :]).amax(dim=-2)

@@ -10,6 +10,10 @@ to 1,312); above that the wrapper gives the kernel a device-memory scratch
 for it. Selections and rounds are bit-identical to
 `ops.lgs.batched_lgs_plain`.
 
+With ``share`` = D > 1 the kernel solves D weight rows on each adjacency
+(weight row g reads adjacency g // D): `ops.lgs.batched_lgs_multi`'s D
+variants of one graph with no D-fold copy of it.
+
 `batched_lgs_kernel.launches` counts the kernel's launches.
 """
 
@@ -56,15 +60,19 @@ MAX_N = SMEM_BYTES // 4 // 36 * 32
 
 
 def batched_lgs_kernel(adj: torch.Tensor, wts: torch.Tensor,
-                       mask: torch.Tensor, max_rounds: Optional[int] = None
+                       mask: torch.Tensor, max_rounds: Optional[int] = None,
+                       share: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LGS over a padded batch on the card.
 
     Args:
-      adj:  [B, N, N] int8 or bool, contiguous, CUDA (> 0 is an edge).
+      adj:  [B / share, N, N] int8 or bool, contiguous, CUDA (> 0 is an
+        edge).
       wts:  [B, N] float32, bfloat16, float16 or float64 node weights.
       mask: [B, N] bool, contiguous, True for real nodes.
       max_rounds: optional round cap (None = until no node remains).
+      share: weight rows per adjacency: row g is solved on adjacency
+        g // share.
 
     Returns (sel [B, N] int8 in {-1, 0, 1}, util [B] in the weights' dtype,
     rounds [B] int32 — per graph, where `batched_lgs` returns the batch
@@ -76,7 +84,11 @@ def batched_lgs_kernel(adj: torch.Tensor, wts: torch.Tensor,
     if adj.dim() != 3 or wts.dim() != 2 or mask.dim() != 2:
         raise ValueError("expected adj [B, N, N], wts [B, N], mask [B, N]")
     b, n = wts.shape
-    if adj.shape != (b, n, n) or mask.shape != (b, n):
+    share = int(share)
+    if share < 1 or adj.shape[0] * share != b:
+        raise ValueError(f"adj holds {adj.shape[0]} graphs: share={share} "
+                         f"needs adj.shape[0] * share == {b} weight rows")
+    if adj.shape[1:] != (n, n) or mask.shape != (b, n):
         raise ValueError(f"shape mismatch: adj {tuple(adj.shape)}, wts "
                          f"{tuple(wts.shape)}, mask {tuple(mask.shape)}")
     if not 1 <= n <= MAX_N:
@@ -97,21 +109,23 @@ def batched_lgs_kernel(adj: torch.Tensor, wts: torch.Tensor,
                          f"{mask.device})")
     cap = n if max_rounds is None else max(0, min(int(max_rounds), n))
     if wts.dtype != torch.float64:
-        return launch(adj, wts.contiguous(), mask, cap)
+        return launch(adj, wts.contiguous(), mask, cap, share=share)
     sel, _, rounds = launch(adj, lgs_ranks(wts).float(), mask, cap,
-                            with_util=False)
+                            with_util=False, share=share)
     util = torch.where(sel == 1, wts, torch.zeros_like(wts)).sum(dim=-1)
     return sel, util, rounds
 
 
 def launch(adj: torch.Tensor, wts: torch.Tensor, mask: torch.Tensor,
-           cap: int, with_util: bool = True, defines: Tuple[str, ...] = ()
+           cap: int, with_util: bool = True, defines: Tuple[str, ...] = (),
+           share: int = 1
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
-    """The bare kernel launch on checked inputs: int8/bool adj [B, N, N],
-    float32/bfloat16/float16 weights [B, N] and bool mask [B, N],
-    contiguous, on one card -> (sel [B, N] int8, util [B] in the weights'
-    dtype or None when not `with_util`, rounds [B] int32). Counts the
-    launch. `defines` selects a build of the source (`CLOCK_DEFINES`)."""
+    """The bare kernel launch on checked inputs: int8/bool adj
+    [B / share, N, N], float32/bfloat16/float16 weights [B, N] and bool
+    mask [B, N], contiguous, on one card -> (sel [B, N] int8, util [B] in
+    the weights' dtype or None when not `with_util`, rounds [B] int32).
+    Counts the launch. `defines` selects a build of the source
+    (`CLOCK_DEFINES`)."""
     b, n = wts.shape
     dev = adj.device
     sel = torch.empty((b, n), dtype=torch.int8, device=dev)
@@ -124,14 +138,14 @@ def launch(adj: torch.Tensor, wts: torch.Tensor, mask: torch.Tensor,
                torch.empty((b, n * (((n + 31) // 32) | 1) + n),
                            dtype=torch.int32, device=dev))
     launch_fn = _build.bind("lgs", "lgs_launch",
-                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                             + [ctypes.c_void_p], defines)
     with torch.cuda.device(dev):
         launch_fn(adj.data_ptr(), wts.data_ptr(), mask.data_ptr(),
                   sel.data_ptr(), None if util is None else util.data_ptr(),
                   rounds.data_ptr(),
                   None if scratch is None else scratch.data_ptr(), b, n, cap,
-                  WEIGHT_TYPES[wts.dtype], _build.stream_of(adj))
+                  WEIGHT_TYPES[wts.dtype], share, _build.stream_of(adj))
     batched_lgs_kernel.launches += 1
     return sel, util, rounds
 

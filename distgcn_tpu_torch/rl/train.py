@@ -23,8 +23,9 @@ float32 labels on the padded batch.
 Optimizer state is explicit, as optax's is: ``{"count": int, "m": {name:
 tensor}, "v": {name: tensor}}`` keyed by the model's parameter names
 (``gc1.w_0``), so `rl/checkpoint.py` maps it leaf for leaf onto the JAX
-package's ``opt_state`` tree. `make_supervised_diver_step` waits for
-`GCNDeepDiver` (ROADMAP queue A, items 4 and 14).
+package's ``opt_state`` tree. `make_supervised_diver_step` is the
+supervised GCNDeepDiver step (hindsight-min weighted CE, one TF1 Adam
+update per batch).
 """
 
 from __future__ import annotations
@@ -239,3 +240,35 @@ class ReplayTrainer:
     def train_minibatch(self, minibatch: List[tuple]) -> float:
         """Replay a minibatch; returns the mean per-sample loss."""
         return float(self.step(*self.prepare(minibatch)).mean())
+
+
+def make_supervised_diver_step(model, optimizer: GradientTransformation,
+                               diver_num: int):
+    """Supervised step for GCN_DEEP_DIVER training: the mean over the batch
+    of the hindsight-min weighted CE over the diver heads
+    (gcn/models.py:327-334) on labeled graphs (the datasets' `mwis_label`),
+    through autograd and one `optimizer` update of `model`'s parameters in
+    place.
+
+    Returns step(opt_state, features, supports, mask, labels01,
+    node_weights) -> (opt_state, loss), loss a 0-d tensor taken at the
+    parameters before the update.
+    """
+    from distgcn_tpu_torch.rl.losses import hindsight_diver_ce
+
+    def step(opt_state, features, supports, mask, labels01, node_w):
+        params = dict(model.named_parameters())
+        out = model(features, supports, mask)
+        m = mask.to(out.dtype)
+        # weight only real nodes; the CE is node-weight-normalized
+        w = node_w * m
+        losses = [hindsight_diver_ce(out[i], labels01[i], w[i], diver_num)
+                  for i in range(out.shape[0])]
+        loss = torch.stack(losses).mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates, opt_state = optimizer.update(dict(zip(params, grads)),
+                                              opt_state)
+        apply_updates(params, updates)
+        return opt_state, loss.detach()
+
+    return step

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX and nothing of `distgcn_tpu`,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports no JAX, nothing of `distgcn_tpu` and
+no pandas (the machine with the card has none), and its entry points run
+on the card unless the caller asks for the CPU."""
 
 import json
 import os
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 from distgcn_tpu_torch.agents import DQNAgent
+from distgcn_tpu_torch.agents_extra import (DiverAgent, LegacyDQNAgent,
+                                            MLPAgent)
 from distgcn_tpu_torch.cli import train_gdpg
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.models.gcn import make_model_from_config
@@ -29,7 +32,7 @@ names = [m.name for m in pkgutil.walk_packages(distgcn_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-banned = {"jax", "jaxlib", "flax", "optax", "distgcn_tpu"}
+banned = {"jax", "jaxlib", "flax", "optax", "distgcn_tpu", "pandas"}
 print(json.dumps({"modules": names,
                   "banned": sorted(m for m in sys.modules
                                    if m.split(".")[0] in banned)}))
@@ -52,7 +55,9 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
                 "parallel.halo", "parallel.large_sharded", "parallel.mesh",
                 "utils.directory", "data.matio", "data.generate",
                 "solvers.greedy", "compat.tf1_ckpt", "rl.losses", "rl.train",
-                "rl.checkpoint", "cli.train_gdpg"):
+                "rl.checkpoint", "cli.train_gdpg", "solvers.iterative",
+                "agents_extra", "cli.eval_graphs", "cli.train_dqn",
+                "cli.train_diver"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
     assert result["banned"] == []
 
@@ -93,6 +98,33 @@ def test_trainer_entry_points_raise_without_a_card(rng):
                                "device": None, "feature_mode": "gdpg"})()
     with pytest.raises(RuntimeError, match="CUDA"):
         ReplayTrainer(agent).train_minibatch([entry])
+
+
+@pytest.mark.parametrize("cls", [LegacyDQNAgent, MLPAgent, DiverAgent])
+def test_extra_agents_default_to_the_card(cls):
+    """The extra agent families take the card unless asked for the CPU,
+    and so do the CLIs that build them."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    cfg = Config(num_layer=2, hidden1=8, feature_size=1, diver_num=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(cfg)
+    agent = cls(cfg, device="cpu")
+    assert agent.device == torch.device("cpu")
+    assert next(agent.model.parameters()).device.type == "cpu"
+
+
+def test_eval_and_train_clis_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from distgcn_tpu_torch.cli import eval_graphs, train_diver, train_dqn
+    for main in (eval_graphs.main, train_dqn.main, train_diver.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--datapath=/nonexistent", "--test_datapath=/nonexistent",
+                  "--model_root=/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_graphs.main(["--datapath=/nonexistent", "--rollout=1",
+                          "--model_root=/nonexistent"])
 
 
 def test_cpu_device_sets_full_f32_matmuls():

@@ -146,10 +146,96 @@ def test_dense_layer_matches_flax(rng):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("family", ["mlp2", "deep_diver"])
-def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgcn.make_model_from_config(Config(), family, device="cpu")
+@pytest.mark.parametrize("is_dual", [False, True])
+@pytest.mark.parametrize("num_layer", [2, 4])
+def test_mlp2_matches_flax_init(rng, num_layer, is_dual):
+    kw = dict(feature_size=3, hidden1=16, num_layer=num_layer, diver_num=2)
+    jmodel = jgcn.make_model_from_config(JConfig(**kw), "mlp2",
+                                         is_dual=is_dual)
+    x = rng.random((2, 40, 3)).astype(np.float32) - 0.3
+    params = jmodel.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
+    tmodel = tgcn.make_model_from_config(
+        Config(**kw), "mlp2", is_dual=is_dual,
+        params=tgcn.params_from_jax(params), device="cpu")
+    assert isinstance(tmodel, tgcn.MLP2)
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 40, 2)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("wts_init", ["random", "zeros"])
+@pytest.mark.parametrize("skip", [False, True])
+def test_deep_diver_matches_flax_init(rng, skip, wts_init):
+    kw = dict(feature_size=3, hidden1=16, num_layer=3, diver_num=4,
+              max_degree=1, skip=skip, wts_init=wts_init)
+    jmodel = jgcn.make_model_from_config(JConfig(**kw), "deep_diver")
+    x, sup, mask = _inputs(rng, 3)
+    params = jmodel.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                         jnp.asarray(sup))["params"]
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x),
+                                   jnp.asarray(sup), jnp.asarray(mask)))
+    tmodel = tgcn.make_model_from_config(
+        Config(**kw), "deep_diver", params=tgcn.params_from_jax(params),
+        device="cpu")
+    assert isinstance(tmodel, tgcn.GCNDeepDiver) and not tmodel.use_bias
+    got = _torch_forward(tmodel, x, sup, mask)
+    assert got.shape == want.shape == (2, 64, 8)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[~mask] == 0)
+
+
+DIVERS = sorted(glob.glob(os.path.join(REPO, "model", "*mwis_diver",
+                                       "params.npz")))
+
+
+@pytest.mark.parametrize("path", DIVERS, ids=lambda p: p.split(os.sep)[-2])
+def test_deep_diver_matches_flax_on_diver_checkpoint(rng, path):
+    """The repo's two diver32 checkpoints: 20 layers, 32 wide, 64 logits,
+    no bias; they load into the port's deep_diver family. The logits reach
+    ~10 in magnitude after 20 layers, so the absolute tolerance is 1e-5 of
+    the largest logit (f32 rounding accumulates with the scale; the
+    measured gap is ~5e-6 of it)."""
+    tree = load_params(path)
+    jtree = jload_params(path)
+    assert len(tree) == 20 and tree["gc20"]["w_0"].shape == (32, 64)
+    kw = dict(feature_size=32, hidden1=32, num_layer=20, diver_num=32,
+              max_degree=1)
+    jmodel = jgcn.make_model_from_config(JConfig(**kw), "deep_diver")
+    tmodel = tgcn.make_model_from_config(
+        Config(**kw), "deep_diver", params=tgcn.params_from_jax(tree),
+        device="cpu")
+    x, sup, mask = _inputs(rng, 32)
+    want = np.asarray(jmodel.apply({"params": jtree}, jnp.asarray(x),
+                                   jnp.asarray(sup), jnp.asarray(mask)))
+    got = _torch_forward(tmodel, x, sup, mask)
+    assert got.shape == (2, 64, 64) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_diver_checkpoints_present():
+    assert len(DIVERS) == 2, DIVERS
+
+
+@pytest.mark.parametrize("shape", [(5, 3), (2, 7, 4)])
+def test_maxpool_aggregate_matches_jax(rng, shape):
+    n, f = shape[-2], shape[-1]
+    lead = shape[:-2]
+    x = (rng.random(lead + (n, n)) < 0.4).astype(np.float32)
+    x = x * (rng.random(x.shape).astype(np.float32) + 0.5)
+    y = rng.random(lead + (n, f)).astype(np.float32) - 0.5
+    want = np.asarray(jlayers.maxpool_aggregate(jnp.asarray(x),
+                                                jnp.asarray(y)))
+    got = tlayers.maxpool_aggregate(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.shape == want.shape == lead + (n, f)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_unknown_family_raises():
+    with pytest.raises(ValueError, match="unknown model family"):
+        tgcn.make_model_from_config(Config(), "gcn3", device="cpu")
 
 
 def test_random_init_is_seeded():
