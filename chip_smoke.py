@@ -131,7 +131,39 @@ Phases (each prints its own lines; any failure exits non-zero):
 17. the trainers: one epoch each of `train_dqn.main` (ERDQNB) and
    `train_diver.main` (ERUNI diver32) over 32 generated ER graphs with
    heuristic labels, in temporary model roots: losses finite, params
-   changed.
+   changed;
+18. the exact MWIS solver: the port's own copy of the native source built
+   with g++ here (its path must not lie under `distgcn_tpu/`),
+   `mwis_exact` equal to brute force on 20 graphs of 8..16 nodes and to
+   `_python_bnb` on 8 graphs of 30..40 nodes (rtol 1e-9, Optimal), then
+   timed on the 20 repo networks' conflict graphs with queue x rate
+   weights (median and largest ms);
+19. the wireless device loops over all 20 networks of
+   `data/wireless_test/` in one batch (B=20, links padded to 128) with the
+   ERGDPG2 l20 c32 checkpoint (`gcn_dqn`): `wireless_sim.main
+   --device_loop=1` at n_ch=1 over loads 0.1..1.0 (2 B1 launches a slot)
+   and at n_ch=3 on the product graph (384 nodes) at loads 0.3, 0.6, 0.9
+   (1 a slot), `make_closed_loop_seq` at n_ch=3, load 0.6 (3 a slot).
+   Queues finite, >= 0 and 0 on padding; B1's calls in the n_ch=1 and
+   product-graph episodes held against the plain version on the same card
+   tensors (phase 2's tolerances), and the product graph's schedules with
+   at most one channel per link, independent, no padded node; bf16
+   avg_utility of the n_ch=1 loop at load 0.9 within 1% of f32; the three
+   loops again with pinned draws (constant rates, one fixed arrival array)
+   on the card and on the CPU: end queues and metrics within rtol 1e-5, and
+   their B1 calls against the plain version; decisions/s (B x T / wall) per
+   loop and the peak device memory;
+20. the host engine: `wireless_sim.main --opt=0` (Greedy, DGCN-LGS with the
+   agent on the card, Benchmark with the exact solver) on the four
+   smallest repo networks at loads 0.3 and 0.9, T=200; utility ratios <= 1;
+   every resident solve's B1 call against the plain version; a resumed
+   call adds no row; one (network, load) pair again with the agent on the
+   CPU (Greedy and Benchmark identical, DGCN-LGS within rtol 1e-5, the
+   slots scheduled differently counted); seconds per (network, load) split
+   into exact solver and agent time; the largest network (81 links) at
+   load 0.9, with the exact solves that ran the B&B's local search counted;
+   one `--opt=5` (DGCN-LGS-Seq) instance at n_ch=3 with
+   `--benchmark=greedy`, its B1 calls against the plain version.
 
 The launch counts of the JSON line come from the main paths: phase 4 for the
 LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the int32
@@ -139,8 +171,11 @@ neighbour-max (counts set to 0 just before, read just after); the LGS
 entry's `train_launches` gives the trainer paths' main runs, each counted
 the same way: phase 12's 40 solves, phase 13's `train_gdpg` epoch and phase
 14's T=60 episode; `multi_launches` phase 16's diver searches (the shared
-mode), and `eval_launches` phases 15 and 17. `model/` is only read: the
-trainers write into temporary copies. Runs of the sharded path across
+mode), `eval_launches` phases 15 and 17, and `wireless_launches` the
+main paths of phases 19 (the two CLI sweeps, the sequential episode) and
+20 (the host engine's first call, the largest network's pair, the
+DGCN-LGS-Seq run). `model/` is only
+read: the trainers write into temporary copies. Runs of the sharded path across
 several cards (D > 1 over NCCL) need a multi-card machine; this script
 takes one card.
 
@@ -164,6 +199,7 @@ import time
 from types import SimpleNamespace
 
 import numpy as np
+import scipy.io as sio
 import scipy.sparse as sp
 import torch
 import torch.distributed as dist
@@ -172,11 +208,12 @@ from torch.profiler import ProfilerActivity, profile
 from distgcn_tpu_torch.agents import DQNAgent, build_state_arrays
 from distgcn_tpu_torch.agents_extra import DiverAgent, LegacyDQNAgent
 from distgcn_tpu_torch.cli import eval_graphs, train_diver, train_dqn
-from distgcn_tpu_torch.cli import train_gdpg
+from distgcn_tpu_torch.cli import train_gdpg, wireless_sim
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.core.prep import normalize_adj
 from distgcn_tpu_torch.data.generate import er_graph, generate_graph_dataset
 from distgcn_tpu_torch.data.matio import load_dataset_cached
+from distgcn_tpu_torch.data.wireless import poisson_graphs_from_dict
 from distgcn_tpu_torch.large import (_make_spmm, bsr_lgs, build_large_graph,
                                      geometric_conflict_graph,
                                      large_gcn_forward,
@@ -190,7 +227,7 @@ from distgcn_tpu_torch.ops.cheb_fused import (fused_cheb_layer,
                                               fused_cheb_layer_plain,
                                               pad_layer_params)
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
-from distgcn_tpu_torch.ops.lgs import (batched_lgs_multi,
+from distgcn_tpu_torch.ops.lgs import (batched_lgs, batched_lgs_multi,
                                        batched_lgs_multi_plain,
                                        batched_lgs_plain, ell_lgs,
                                        lgs_ranks)
@@ -210,12 +247,18 @@ from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
 from distgcn_tpu_torch.parallel.large_sharded import (make_sharded_large_solve,
                                                       shard_arrays,
                                                       shard_large_graph)
+from distgcn_tpu_torch import agents as agents_mod
+from distgcn_tpu_torch import pipeline as pipeline_mod
 from distgcn_tpu_torch.pipeline import (make_solve_pipeline,
                                         make_train_pipeline)
 from distgcn_tpu_torch.rl.train import make_optimizer
+from distgcn_tpu_torch.sim import device_sim
+from distgcn_tpu_torch.sim import wireless as sim_wireless
 from distgcn_tpu_torch.sim.device_sim import (make_closed_loop,
+                                              make_closed_loop_mc,
+                                              make_closed_loop_seq,
                                               make_online_training_loop)
-from distgcn_tpu_torch.solvers import iterative
+from distgcn_tpu_torch.solvers import exact, iterative
 from distgcn_tpu_torch.solvers.greedy import greedy_search
 from distgcn_tpu_torch.utils.config import Config
 from distgcn_tpu_torch.utils.directory import find_model_folder
@@ -1490,21 +1533,33 @@ def diver_config(**kw) -> Config:
 
 
 @contextlib.contextmanager
-def counting(module, name):
-    """Counts the calls of module.name (a function the module looks up at
-    call time) while the context is open."""
-    fn = getattr(module, name)
-    calls = [0]
+def timed(obj, name, record=None):
+    """Accumulates the wall seconds and calls of obj.name (looked up at
+    call time) while open, and each call's seconds; appends each result to
+    `record` if given."""
+    fn = getattr(obj, name)
+    own = name in vars(obj)
+    stats = {"s": 0.0, "calls": 0, "each": []}
 
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return fn(*args, **kwargs)
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        stats["s"] += dt
+        stats["calls"] += 1
+        stats["each"].append(dt)
+        if record is not None:
+            record.append(out)
+        return out
 
-    setattr(module, name, counted)
+    setattr(obj, name, wrapped)
     try:
-        yield calls
+        yield stats
     finally:
-        setattr(module, name, fn)
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
 
 
 def phase_iterative(dev) -> dict:
@@ -1522,7 +1577,7 @@ def phase_iterative(dev) -> dict:
     for name, method in solvers.items():
         reset_launch_counts()
         t0 = time.perf_counter()
-        with counting(iterative, "_masked_forward") as steps:
+        with timed(iterative, "_masked_forward") as steps:
             card = [getattr(agent, method)(a, w) for a, w in insts]
         secs = time.perf_counter() - t0
         launches = batched_lgs_kernel.launches
@@ -1536,19 +1591,19 @@ def phase_iterative(dev) -> dict:
                   f"{name} utility is not the schedule's weight")
             check(abs(util - rutil) <= 0.01 * abs(rutil),
                   f"{name} utility {util} vs the CPU's {rutil}")
-        want = 0 if name == "cgs" else steps[0]
+        want = 0 if name == "cgs" else steps["calls"]
         check(launches == want, f"{name}: {launches} LGS launches in "
-              f"{steps[0]} steps (want {want})")
+              f"{steps['calls']} steps (want {want})")
         equal = sum(s == r for (s, _), (r, _) in zip(card, ref))
         mean_u = float(np.mean([u for _, u in card]))
         rel = mean_u / float(np.mean([u for _, u in ref])) - 1.0
         print(f"phase 15: {name} (ERGDPG2 l20 c32, 8 ER graphs of "
               f"{N_MIN}..{N} nodes): schedules independent+maximal, "
               f"{equal}/8 selections equal to the CPU's, mean utility "
-              f"{mean_u:.6f} ({rel:+.3e} vs CPU), {steps[0]} steps, "
+              f"{mean_u:.6f} ({rel:+.3e} vs CPU), {steps['calls']} steps, "
               f"{launches} LGS launches; card {secs:.3f} s, CPU "
               f"{cpu_s:.3f} s", flush=True)
-        out[name] = {"launches": launches, "steps": steps[0],
+        out[name] = {"launches": launches, "steps": steps["calls"],
                      "equal": equal, "card_s": secs}
     return out
 
@@ -1647,14 +1702,14 @@ def phase_diver(dev, tmp) -> dict:
         check(len(insts) <= it_launches <= 5 * len(insts),
               f"solve_mwis_iterative: {it_launches} LGS launches")
         before = batched_lgs_kernel.launches
-        with counting(ag, "_eval_heads_resident") as evals:
+        with timed(ag, "_eval_heads_resident") as evals:
             t0 = time.perf_counter()
             many = ag.solve_mwis_bsf_many(insts, max_pops=8, batch_pops=8,
                                           group=4)
             many_s = time.perf_counter() - t0
         many_launches = batched_lgs_kernel.launches - before
-        check(many_launches == evals[0], f"bsf_many: {many_launches} LGS "
-              f"launches for {evals[0]} pop batches")
+        check(many_launches == evals["calls"], f"bsf_many: {many_launches} "
+              f"LGS launches for {evals['calls']} pop batches")
         maximal = 0
         for (a, w), (s1, u1), (s2, u2) in zip(insts, it, many):
             check(schedule_ok_host(s1, a), "a solve_mwis_iterative schedule "
@@ -1669,8 +1724,9 @@ def phase_diver(dev, tmp) -> dict:
         print(f"phase 16: {dt}: solve_mwis_iterative on 16 graphs mean "
               f"utility {utils[dt][0]:.6f} ({it_launches} LGS launches, "
               f"{it_s:.3f} s); solve_mwis_bsf_many (max_pops 8, batch_pops "
-              f"8, group 4) mean utility {utils[dt][1]:.6f}, {evals[0]} pop "
-              f"batches = {many_launches} LGS launches, {maximal}/16 "
+              f"8, group 4) mean utility {utils[dt][1]:.6f}, "
+              f"{evals['calls']} pop batches = {many_launches} LGS launches, "
+              f"{maximal}/16 "
               f"schedules maximal (backoff children exclude nodes), "
               f"{many_s:.3f} s", flush=True)
     launches = batched_lgs_kernel.launches
@@ -1842,6 +1898,532 @@ def phase_trainers(dev, tmp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the wireless path (phases 18-20)
+# ---------------------------------------------------------------------------
+
+NETS = "data/wireless_test"
+# the four networks with the fewest links (36, 46, 28 and 35), and the one
+# with the most (81): at load 0.9 the exact B&B starts its time-budgeted
+# local search (5% of the 10 s timeout) on about a sixth of the largest
+# one's solves and on none of the small ones'
+HOST_NETS = ("0006", "0009", "0015", "0018")
+LARGEST_NET = "0013"
+WIRELESS_T = wireless_sim.DEVICE_LOOP_SLOTS
+PINNED_T = 40                  # slots of the card-vs-CPU pinned episodes
+LOCAL_SEARCH_S = 0.1           # a solve this long ran the local search
+
+
+def mwis_brute_force(adj, w) -> float:
+    """The largest weight of an independent set, over all 2^n subsets."""
+    n = w.size
+    subsets = ((np.arange(1 << n)[:, None] >> np.arange(n)) & 1) \
+        .astype(np.float64)
+    clash = ((subsets @ adj.toarray()) * subsets).sum(axis=1) > 0
+    return float((subsets @ w)[~clash].max())
+
+
+def qr_weights(rng, n):
+    """Queue x rate utilities as a loaded slot sees them: queues uniform
+    in [0, 3000), rates the simulator's truncated Gaussian in [0, 100]."""
+    q = np.floor(rng.random(n) * 3000)
+    r = np.clip(np.trunc(rng.normal(50.0, 25.0, n)), 0, 100)
+    return q * r
+
+
+def phase_exact(dev) -> dict:
+    """Phase 18: the port's own native exact solver, built here."""
+    t0 = time.perf_counter()
+    path = exact.native_library()
+    build_s = time.perf_counter() - t0
+    real = os.path.realpath(path)
+    check(os.sep + os.path.join("distgcn_tpu", "") not in real,
+          f"the exact solver loaded {real}")
+    print(f"phase 18: native exact solver built and loaded in {build_s:.3f} "
+          f"s: {real}", flush=True)
+    rng = np.random.default_rng(180)
+    for _ in range(20):
+        n = int(rng.integers(8, 17))
+        a, w = er_graph(n, 0.3, rng), rng.random(n)
+        _, val, status = exact.mwis_exact(a, w, 10.0)
+        want = mwis_brute_force(a, w)
+        check(status == "Optimal" and abs(val - want) <= 1e-9 * want,
+              f"mwis_exact {val} ({status}) vs brute force {want}")
+    for _ in range(8):
+        n = int(rng.integers(30, 41))
+        a = er_graph(n, 0.15, rng)
+        w = rng.random(n)
+        _, val, status = exact.mwis_exact(a, w, 10.0)
+        _, pval, pstatus = exact._python_bnb(exact._csr(a), w, 60.0)
+        check(status == pstatus == "Optimal"
+              and abs(val - pval) <= 1e-9 * pval,
+              f"mwis_exact {val} ({status}) vs _python_bnb {pval}")
+    ms, statuses = [], []
+    for f in sorted(os.listdir(NETS)):
+        m = sio.loadmat(os.path.join(NETS, f))
+        adj = poisson_graphs_from_dict(m["gdict"][0, 0])[2]
+        w = qr_weights(rng, adj.shape[0])
+        t0 = time.perf_counter()
+        _, _, status = exact.mwis_exact(adj, w, 10.0)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        statuses.append(status)
+    print(f"phase 18: mwis_exact equal to brute force on 20 graphs of 8..16 "
+          f"nodes and to _python_bnb on 8 ER graphs of 30..40 nodes (rtol "
+          f"1e-9, all Optimal); on the 20 repo networks' conflict graphs "
+          f"(28..81 links) with queue x rate weights, timeout 10 s: median "
+          f"{np.median(ms):.3f} ms, largest {max(ms):.3f} ms, "
+          f"{statuses.count('Optimal')}/20 Optimal", flush=True)
+    return {"build_s": build_s, "median_ms": float(np.median(ms)),
+            "max_ms": float(max(ms))}
+
+
+def wireless_argv(datapath, n_ch, lo, hi, step, out, *extra) -> list:
+    """`wireless_sim` flags for the ERGDPG2 l20 c32 checkpoint."""
+    return [f"--test_datapath={datapath}", "--wt_sel=qr",
+            f"--load_min={lo}", f"--load_max={hi}", f"--load_step={step}",
+            f"--num_channels={n_ch}", "--training_set=ERGDPG2",
+            "--num_layer=20", "--hidden1=32", "--feature_size=1",
+            "--diver_num=1", "--max_degree=1", "--predict=mwis",
+            "--model_root=model", f"--output={out}", *extra]
+
+
+def wireless_agent(dev) -> DQNAgent:
+    """The ERGDPG2 l20 c32 checkpoint as `wireless_sim` loads it."""
+    cfg = train_config(epsilon=0.0)
+    agent = DQNAgent(cfg, model_family="gcn_dqn", device=dev)
+    check(agent.load(find_model_folder(cfg, "dqn", "model")),
+          "ERGDPG2 checkpoint load")
+    return agent
+
+
+def cli_lines(fn, phase):
+    """Runs fn with its standard output captured; prints the CLI's lines
+    under the phase's name. Returns (seconds, result)."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        secs, out = sync_s(fn)
+    for line in log.getvalue().splitlines():
+        if line.startswith(("load ", "net ")):
+            print(f"phase {phase}: {line}")
+    return secs, out
+
+
+def queues_ok(q, mask, what):
+    check(bool(torch.isfinite(q).all()) and bool((q >= 0).all()),
+          f"{what}: queues")
+    check(bool((q[~mask] == 0).all()), f"{what}: padding queues not 0")
+
+
+@contextlib.contextmanager
+def lgs_calls(modules, every=1):
+    """Records the inputs and outputs of every `every`-th `batched_lgs`
+    call that `modules` make while open. The real call runs, so the launch
+    counts stay those of the path."""
+    real = [(mod, mod.batched_lgs) for mod in modules]
+    calls, seen = [], [0]
+
+    def recorded(adj, wts, mask, max_rounds=None):
+        out = batched_lgs(adj, wts, mask, max_rounds)
+        if seen[0] % every == 0:
+            calls.append(SimpleNamespace(
+                adj=adj.clone(), wts=wts.clone(), mask=mask.clone(),
+                max_rounds=max_rounds, sel=out[0].clone(),
+                util=out[1].clone(), rounds=out[2].clone()))
+        seen[0] += 1
+        return out
+
+    for mod in modules:
+        mod.batched_lgs = recorded
+    try:
+        yield calls
+    finally:
+        for mod, fn in real:
+            mod.batched_lgs = fn
+
+
+def lgs_vs_plain(calls, what) -> int:
+    """Holds each recorded B1 call against `batched_lgs_plain` on the same
+    card tensors, with phase 2's tolerances: selections bit-equal, the
+    round count equal, the utility within rtol 1e-6. Calls of one shape go
+    through one plain call. Returns the number of graphs checked."""
+    check(len(calls) > 0, f"{what}: no B1 call recorded")
+    groups = {}
+    for c in calls:
+        key = (tuple(c.adj.shape[1:]), c.adj.dtype, c.wts.dtype,
+               c.max_rounds)
+        groups.setdefault(key, []).append(c)
+    graphs = 0
+    for (_, _, _, cap), group in groups.items():
+        cat = {k: torch.cat([getattr(c, k) for c in group])
+               for k in ("adj", "wts", "mask", "sel", "util")}
+        psel, putil, prounds = batched_lgs_plain(cat["adj"], cat["wts"],
+                                                 cat["mask"], cap)
+        check(torch.equal(cat["sel"], psel),
+              f"{what}: B1's selections differ from the plain version's")
+        rounds = max(int(c.rounds) for c in group)
+        check(rounds == int(prounds),
+              f"{what}: B1 ran {rounds} rounds, the plain version "
+              f"{int(prounds)}")
+        check(bool(torch.allclose(cat["util"], putil, rtol=1e-6,
+                                  atol=1e-6)),
+              f"{what}: B1's utility differs from the plain version's")
+        graphs += cat["sel"].shape[0]
+    return graphs
+
+
+@contextlib.contextmanager
+def pinned_arrivals(arrivals: torch.Tensor):
+    """The device loops made while open draw `arrivals` ([B, Nf]) in every
+    slot: `_traffic` looks the sampler's factory up when a loop is made."""
+    real = device_sim.make_poisson_arrivals
+    device_sim.make_poisson_arrivals = lambda lam: (
+        lambda generator, shape, dtype=torch.float32:
+        arrivals.to(generator.device, dtype))
+    try:
+        yield
+    finally:
+        device_sim.make_poisson_arrivals = real
+
+
+def pinned_card_vs_cpu(agent, cpu, make, adj, mask, every, dev):
+    """One loop (`make(model)`) with pinned draws, constant rates and one
+    fixed integer arrival array, on the card and on the CPU. Returns
+    whether the end queues and every metric agree within rtol 1e-5, the
+    graphs whose end queues differ, the largest deviation of each metric
+    relative to its largest CPU value, and the number of graphs whose B1
+    calls (every `every`-th) were held against the plain version."""
+    arrivals = torch.from_numpy(np.floor(np.random.default_rng(19).random(
+        mask.shape) * 60).astype(np.float32))
+    with pinned_arrivals(arrivals):
+        on_card, on_cpu = make(agent.model), make(cpu.model)
+    with lgs_calls([device_sim], every) as calls:
+        q, m = on_card(adj, mask, torch.zeros(mask.shape, device=dev),
+                       torch.Generator(device=dev).manual_seed(0))
+    cq, cm = on_cpu(adj.cpu(), mask.cpu(), torch.zeros(mask.shape),
+                    torch.Generator().manual_seed(0))
+    q = q.cpu()
+    agree = bool(torch.allclose(q, cq, rtol=1e-5, atol=0.0))
+    dev_rel = {}
+    for k, want in cm.items():
+        got = m[k].cpu()
+        agree &= bool(torch.allclose(got, want, rtol=1e-5, atol=0.0))
+        dev_rel[k] = float((got - want).abs().max() / want.abs().max())
+    differ = int((q != cq).any(dim=-1).sum())
+    return agree, differ, dev_rel, lgs_vs_plain(calls, "pinned loop")
+
+
+def twin_ties(agent, adj, mask) -> tuple:
+    """(adjacent link pairs, pairs whose hoisted gdpg GCN scores agree
+    within 1e-5 relative, pairs whose scores are bit-equal) on the card."""
+    supports, scores = device_sim._episode_scorer(
+        agent.model, agent.flags, "gdpg", adj, mask)
+    act = scores(supports, torch.ones(mask.shape, device=mask.device), mask)
+    act = act.double()
+    edge = torch.triu((adj > 0) & mask[:, :, None] & mask[:, None, :], 1)
+    diff = (act[:, :, None] - act[:, None, :]).abs()
+    return (int(edge.sum()),
+            int((edge & (diff <= 1e-5 * act.abs().amax())).sum()),
+            int((edge & (diff == 0)).sum()))
+
+
+def phase_wireless_loops(dev, tmp) -> dict:
+    """Phase 19: the device loops over all 20 repo networks in one batch
+    (B=20, links padded to 128) with the ERGDPG2 l20 c32 checkpoint."""
+    base = torch.cuda.memory_allocated(dev)    # what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    agent = wireless_agent(dev)
+    out, launches = {}, {}
+    b = len(os.listdir(NETS))
+    # n_ch = 1 over the load sweep, through the CLI (2 launches a slot)
+    argv = wireless_argv(NETS, 1, 0.1, 1.0, 0.1, os.path.join(tmp, "dl1"),
+                         "--device_loop=1", f"--device={dev}")
+    reset_launch_counts()
+    secs, res = cli_lines(lambda: wireless_sim.main(argv, agent=agent), 19)
+    launches["device_loop_1ch"] = batched_lgs_kernel.launches
+    check(launches["device_loop_1ch"] == 2 * WIRELESS_T * 10,
+          f"n_ch=1: {launches['device_loop_1ch']} B1 launches")
+    check(len(res.rows) == b * 10, f"n_ch=1: {len(res.rows)} rows")
+    out["sweep_1ch_decisions_s"] = b * WIRELESS_T * 10 / secs
+    print(f"phase 19: main_device_loop n_ch=1, B={b}, Nf 128, T="
+          f"{WIRELESS_T}, loads 0.1..1.0: {secs:.3f} s, "
+          f"{out['sweep_1ch_decisions_s']:.1f} decisions/s (set-up "
+          f"included), {launches['device_loop_1ch']} B1 launches",
+          flush=True)
+    # n_ch = 3 on the product graph, through the CLI (1 launch a slot)
+    argv = wireless_argv(NETS, 3, 0.3, 0.9, 0.3, os.path.join(tmp, "dl3"),
+                         "--device_loop=1", f"--device={dev}")
+    reset_launch_counts()
+    secs, res = cli_lines(lambda: wireless_sim.main(argv, agent=agent), 19)
+    launches["device_loop_mc"] = batched_lgs_kernel.launches
+    check(launches["device_loop_mc"] == WIRELESS_T * 3,
+          f"mc: {launches['device_loop_mc']} B1 launches")
+    check(len(res.rows) == b * 3, f"mc: {len(res.rows)} rows")
+    out["sweep_mc_decisions_s"] = b * WIRELESS_T * 3 / secs
+    print(f"phase 19: main_device_loop n_ch=3 (product graph, 384 nodes), "
+          f"loads 0.3, 0.6, 0.9: {secs:.3f} s, "
+          f"{out['sweep_mc_decisions_s']:.1f} decisions/s, "
+          f"{launches['device_loop_mc']} B1 launches", flush=True)
+    # single episodes at load 0.9: queues, bf16 against f32; B1's calls of
+    # the f32 warm-up (both kinds: the GCN's and the baseline's) recorded
+    cfg1 = agent.flags.replace(test_datapath=NETS, num_channels=1)
+    _, adj, mask = wireless_sim.pack_networks(cfg1)
+    adj, mask = torch.from_numpy(adj).to(dev), torch.from_numpy(mask).to(dev)
+    q0 = torch.zeros(mask.shape, device=dev)
+    util, checked = {}, {}
+    for dt in ("float32", "bfloat16"):
+        run = make_closed_loop(agent.model, agent.flags.replace(
+            compute_dtype=dt), timeslots=WIRELESS_T, load=0.9,
+            with_baseline=True)
+        with (lgs_calls([device_sim], 25) if dt == "float32"
+              else contextlib.nullcontext()) as calls:
+            run(adj, mask, q0, torch.Generator(device=dev).manual_seed(1))
+        if calls is not None:
+            checked["n_ch=1"] = lgs_vs_plain(calls, "n_ch=1 loop")
+        secs, (q, m) = sync_s(lambda: run(
+            adj, mask, q0, torch.Generator(device=dev).manual_seed(900)))
+        queues_ok(q, mask, f"n_ch=1 {dt}")
+        util[dt] = float(m["avg_utility"].mean())
+        out[f"1ch_{dt}_decisions_s"] = b * WIRELESS_T / secs
+        print(f"phase 19: n_ch=1 episode {dt}, load 0.9, T={WIRELESS_T}: "
+              f"{secs:.4f} s, {b * WIRELESS_T / secs:.1f} decisions/s, "
+              f"{secs / WIRELESS_T * 1e3:.4f} ms a slot, avg_utility "
+              f"{util[dt]:.4f}, utility ratio to greedy "
+              f"{float(m['avg_utility_ratio'].mean()):.6f}", flush=True)
+    rel = abs(util["bfloat16"] - util["float32"]) / abs(util["float32"])
+    check(rel <= 0.01, f"n_ch=1 bf16 avg_utility off by {rel:.4%}")
+    # the product graph: one episode, whose warm-up's B1 calls are recorded
+    # and their schedules checked
+    cfg3 = agent.flags.replace(test_datapath=NETS, num_channels=3)
+    _, gk, mask3 = wireless_sim.pack_networks(cfg3)
+    gk, mask3 = torch.from_numpy(gk).to(dev), torch.from_numpy(mask3).to(dev)
+    run = make_closed_loop_mc(agent.model, agent.flags, WIRELESS_T, 3,
+                              load=0.9)
+    with lgs_calls([device_sim], 25) as calls:
+        run(gk, mask3, q0, torch.Generator(device=dev).manual_seed(1))
+    checked["mc"] = lgs_vs_plain(calls, "mc loop")
+    on = torch.cat([c.sel for c in calls]) == 1
+    mask_k = torch.cat([c.mask for c in calls])
+    adj_k = torch.cat([c.adj for c in calls])
+    check(not bool((on & ~mask_k).any()), "mc: a padded node scheduled")
+    check(int(on.reshape(on.shape[0], 3, -1).sum(dim=1).max()) <= 1,
+          "mc: two channels of one link on")
+    check(not bool((adj_k & on[:, :, None] & on[:, None, :]).any()),
+          "mc: a schedule is not independent")
+    secs, (q, m) = sync_s(lambda: run(
+        gk, mask3, q0, torch.Generator(device=dev).manual_seed(900)))
+    queues_ok(q, mask3, "mc")
+    out["mc_decisions_s"] = b * WIRELESS_T / secs
+    print(f"phase 19: n_ch=3 episode f32, load 0.9: {secs:.4f} s, "
+          f"{out['mc_decisions_s']:.1f} decisions/s, "
+          f"{secs / WIRELESS_T * 1e3:.4f} ms a slot, avg_utility "
+          f"{float(m['avg_utility'].mean()):.4f}; {len(calls)} slots of the "
+          f"warm-up: at most one channel per link, independent, no padded "
+          f"node", flush=True)
+    # the sequential loop on the per-channel graphs (the product graph's
+    # diagonal blocks), n_ch launches a slot
+    nfp = mask3.shape[1]
+    adj_ch = torch.stack([gk[:, c * nfp:(c + 1) * nfp, c * nfp:(c + 1) * nfp]
+                          for c in range(3)], dim=1)
+    run = make_closed_loop_seq(agent.model, agent.flags, WIRELESS_T, 3,
+                               load=0.6)
+    reset_launch_counts()
+    secs, (q, m) = sync_s(lambda: run(
+        adj_ch, mask3, q0, torch.Generator(device=dev).manual_seed(600)))
+    launches["seq"] = batched_lgs_kernel.launches
+    check(launches["seq"] == 3 * WIRELESS_T,
+          f"seq: {launches['seq']} B1 launches")
+    queues_ok(q, mask3, "seq")
+    out["seq_decisions_s"] = b * WIRELESS_T / secs
+    print(f"phase 19: make_closed_loop_seq n_ch=3, load 0.6: {secs:.4f} s "
+          f"(first call), {out['seq_decisions_s']:.1f} decisions/s, "
+          f"{secs / WIRELESS_T * 1e3:.4f} ms a slot, avg_utility "
+          f"{float(m['avg_utility'].mean()):.4f}, {launches['seq']} B1 "
+          f"launches; bf16 vs f32 avg_utility (n_ch=1, load 0.9) rel diff "
+          f"{rel:.4%}; peak device memory of the phase "
+          f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**20:.1f} MiB "
+          f"above the {base / 2**20:.1f} MiB that earlier phases hold",
+          flush=True)
+    # the three loops again at these shapes with pinned draws (constant
+    # rates, one fixed integer arrival array), card vs CPU: on the links'
+    # own utilities within rtol 1e-5; with the GCN the deviation is printed,
+    # since twin links (structurally equal) get GCN scores that agree in
+    # exact arithmetic, and with equal utilities the last bit of each
+    # device's rounding picks between them
+    cpu = wireless_agent("cpu")
+    pinned = dict(rate_lo=50.0, rate_hi=50.0)
+    loops = (
+        ("n_ch=1", lambda model, g: make_closed_loop(
+            model, agent.flags, PINNED_T, with_baseline=True, use_gcn=g,
+            **pinned), adj, mask, 25),
+        ("mc", lambda model, g: make_closed_loop_mc(
+            model, agent.flags, PINNED_T, 3, use_gcn=g, **pinned), gk, mask3,
+         5),
+        ("seq", lambda model, g: make_closed_loop_seq(
+            model, agent.flags, PINNED_T, 3, use_gcn=g, **pinned), adj_ch,
+         mask3, 7))
+    t0 = time.perf_counter()
+    checked["pinned"], gcn_dev = 0, []
+    for what, make, a, msk, every in loops:
+        for use_gcn in (False, True):
+            agree, differ, rel_dev, graphs = pinned_card_vs_cpu(
+                agent, cpu, lambda model: make(model, use_gcn), a, msk,
+                every, dev)
+            checked["pinned"] += graphs
+            if use_gcn:
+                gcn_dev.append(f"{what}: {differ} of {b} graphs' end queues "
+                               f"differ, metrics by up to "
+                               f"{max(rel_dev.values()):.3g}")
+            else:
+                check(agree, f"{what} pinned, no GCN: card vs CPU {differ} "
+                      f"graphs' end queues differ, metrics {rel_dev}")
+    pairs, near, equal = twin_ties(agent, adj, mask)
+    print(f"phase 19: pinned draws (rates 50, one fixed integer arrival "
+          f"array), T={PINNED_T}, on the links' own utilities: the n_ch=1, "
+          f"mc and seq loops on the card equal to the CPU's within rtol "
+          f"1e-5 (end queues, avg_queue_len, avg_utility, sched_rate); with "
+          f"the GCN, card vs CPU ({'; '.join(gcn_dev)}; relative to each "
+          f"metric's largest value; {near} of the {pairs} conflicting link pairs of the 20 "
+          f"networks have GCN scores equal within 1e-5 relative, {equal} "
+          f"bit-equal on the card); in {time.perf_counter() - t0:.3f} s. "
+          f"B1 held against the plain version on the same card tensors "
+          f"(sel bit-equal, rounds equal, util rtol 1e-6) at the loops' "
+          f"shapes: {checked} graphs", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def ratios_ok(rows, what):
+    for row in rows:
+        if row["name"] != "Benchmark":
+            check(row["avg_utility"] <= 1 + 1e-9,
+                  f"{what}: {row['name']} utility ratio {row['avg_utility']}")
+
+
+def phase_host_engine(dev, tmp) -> dict:
+    """Phase 20: the host engine (`wireless_sim.main`, --opt=0: Greedy,
+    DGCN-LGS on the card, Benchmark with the exact solver) on four repo
+    networks at loads 0.3 and 0.9, T=200; one pair again with the agent on
+    the CPU; the largest network at load 0.9; one DGCN-LGS-Seq instance at
+    n_ch=3. Every resident solve's B1 call is held against the plain
+    version."""
+    nets = os.path.join(tmp, "host_nets")
+    os.makedirs(nets)
+    for name in HOST_NETS:
+        shutil.copy(os.path.join(NETS, f"poisson_net_{name}.mat"), nets)
+    card, cpu = wireless_agent(dev), wireless_agent("cpu")
+    argv = wireless_argv(nets, 1, 0.3, 0.9, 0.6, os.path.join(tmp, "host"),
+                         "--opt=0", f"--device={dev}")
+    sched = []
+    reset_launch_counts()
+    with timed(sim_wireless.exact_mod, "mwis_exact") as ex, \
+            timed(card, "solve_mwis_resident", sched) as ag, \
+            lgs_calls([pipeline_mod]) as calls:
+        secs, res = cli_lines(lambda: wireless_sim.main(argv, agent=card),
+                              20)
+    launches = {"host_engine": batched_lgs_kernel.launches}
+    pairs = len(HOST_NETS) * 2
+    check(len(res.rows) == 3 * pairs, f"host: {len(res.rows)} rows")
+    check(launches["host_engine"] == pairs * (WIRELESS_T - 1),
+          f"host: {launches['host_engine']} B1 launches")
+    ratios_ok(res.rows, "host")
+    checked = lgs_vs_plain(calls, "host engine resident solves")
+    # again, resumed: no new rows, no launches
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = wireless_sim.main(argv, agent=card)
+    check(len(again.rows) == len(res.rows)
+          and batched_lgs_kernel.launches == 0, "host: the resume re-ran")
+    # the last pair (poisson_net_0018 at load 0.9) with the agent on the CPU
+    one = os.path.join(tmp, "host_one")
+    os.makedirs(one)
+    shutil.copy(os.path.join(nets, f"poisson_net_{HOST_NETS[-1]}.mat"), one)
+    cpu_sched = []
+    with timed(cpu, "solve_mwis_resident", cpu_sched), \
+            contextlib.redirect_stdout(io.StringIO()):
+        ref = wireless_sim.main(wireless_argv(
+            one, 1, 0.9, 0.9, 1.0, os.path.join(tmp, "host_cpu"), "--opt=0",
+            "--device=cpu"), agent=cpu)
+    mine = {r["name"]: r for r in res.rows
+            if r["graph"] == ref.rows[0]["graph"] and r["load"] == 0.9}
+    for row in ref.rows:
+        for k in ("avg_queue_len", "med_queue_len", "95p_queue_len",
+                  "5p_queue_len", "avg_utility"):
+            got, want = mine[row["name"]][k], row[k]
+            if row["name"] == "DGCN-LGS":
+                check(abs(got - want) <= 1e-5 * abs(want),
+                      f"DGCN-LGS {k} card {got} vs CPU {want}")
+            else:
+                check(got == want, f"{row['name']} {k} card {got} vs CPU "
+                      f"{want}")
+    differ = sum(a[0] != b[0] for a, b in
+                 zip(sched[-(WIRELESS_T - 1):], cpu_sched))
+    out = {"s_per_pair": secs / pairs, "exact_s_per_pair": ex["s"] / pairs,
+           "agent_s_per_pair": ag["s"] / pairs}
+    slow = sum(t > LOCAL_SEARCH_S for t in ex["each"])
+    print(f"phase 20: wireless_sim.main --opt=0 on {len(HOST_NETS)} networks "
+          f"(28..46 links) x loads 0.3, 0.9, T={WIRELESS_T}: {secs:.3f} s, "
+          f"{out['s_per_pair']:.4f} s per (network, load): exact solver "
+          f"{out['exact_s_per_pair']:.4f} s ({ex['calls']} solves, {slow} "
+          f"over {LOCAL_SEARCH_S} s, the longest "
+          f"{max(ex['each']) * 1e3:.3f} ms), agent "
+          f"{out['agent_s_per_pair']:.4f} s ({ag['calls']} resident solves, "
+          f"{launches['host_engine']} B1 launches, each held against the "
+          f"plain version: {checked} graphs); utility ratios <= 1; resumed "
+          f"call added no row; card vs CPU agent on poisson_net_"
+          f"{HOST_NETS[-1]} at 0.9: Greedy and Benchmark identical, DGCN-LGS "
+          f"within rtol 1e-5, {differ} of {WIRELESS_T - 1} slots scheduled "
+          f"differently", flush=True)
+    # the largest network at load 0.9, where the exact solver's local
+    # search starts
+    big = os.path.join(tmp, "host_largest")
+    os.makedirs(big)
+    shutil.copy(os.path.join(NETS, f"poisson_net_{LARGEST_NET}.mat"), big)
+    argv_big = wireless_argv(big, 1, 0.9, 0.9, 1.0, os.path.join(
+        tmp, "host_largest_out"), "--opt=0", f"--device={dev}")
+    reset_launch_counts()
+    with timed(sim_wireless.exact_mod, "mwis_exact") as ex, \
+            timed(card, "solve_mwis_resident") as ag, \
+            lgs_calls([pipeline_mod]) as calls:
+        secs, res = cli_lines(
+            lambda: wireless_sim.main(argv_big, agent=card), 20)
+    launches["host_engine_largest"] = batched_lgs_kernel.launches
+    check(len(res.rows) == 3, f"host, largest: {len(res.rows)} rows")
+    check(launches["host_engine_largest"] == WIRELESS_T - 1,
+          f"host, largest: {launches['host_engine_largest']} B1 launches")
+    ratios_ok(res.rows, "host, largest")
+    checked = lgs_vs_plain(calls, "host engine resident solves, largest")
+    slow = sum(t > LOCAL_SEARCH_S for t in ex["each"])
+    out.update(largest_s=secs, largest_exact_s=ex["s"],
+               largest_agent_s=ag["s"], largest_local_search_solves=slow)
+    print(f"phase 20: wireless_sim.main --opt=0 on poisson_net_{LARGEST_NET} "
+          f"(81 links) at load 0.9, T={WIRELESS_T}: {secs:.3f} s: exact "
+          f"solver {ex['s']:.4f} s ({ex['calls']} solves, {slow} over "
+          f"{LOCAL_SEARCH_S} s, i.e. with the local search; the longest "
+          f"{max(ex['each']) * 1e3:.3f} ms, the median "
+          f"{np.median(ex['each']) * 1e3:.3f} ms), agent {ag['s']:.4f} s "
+          f"({ag['calls']} resident solves; B1 held against the plain "
+          f"version: {checked} graphs); utility ratios <= 1", flush=True)
+    # DGCN-LGS-Seq at n_ch=3: one solve_mwis a channel with live links
+    argv = wireless_argv(nets, 3, 0.6, 0.6, 1.0, os.path.join(tmp, "seq"),
+                         "--opt=5", "--benchmark=greedy", f"--device={dev}")
+    reset_launch_counts()
+    with lgs_calls([agents_mod]) as calls:
+        secs, res = cli_lines(lambda: wireless_sim.main(
+            argv, agent=card, max_networks=1), 20)
+    launches["host_seq"] = batched_lgs_kernel.launches
+    check(len(res.rows) == 1 and 0 < launches["host_seq"]
+          <= 3 * (WIRELESS_T - 1), f"seq: {launches['host_seq']} launches")
+    checked = lgs_vs_plain(calls, "DGCN-LGS-Seq solves")
+    out["seq_s"] = secs
+    print(f"phase 20: wireless_sim.main --opt=5 (DGCN-LGS-Seq) n_ch=3 on "
+          f"poisson_net_{HOST_NETS[0]} at load 0.6: {secs:.3f} s, "
+          f"{launches['host_seq']} B1 launches (each held against the plain "
+          f"version: {checked} graphs), avg_queue_len "
+          f"{res.rows[0]['avg_queue_len']:.3f}", flush=True)
+    out["launches"] = launches
+    return out
+
+
 COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
            "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
            "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
@@ -1944,6 +2526,22 @@ def main() -> int:
         **{k: v["launches"] for k, v in it.items()},
         "train_dqn": trainers["dqn_launches"],
         "train_diver": trainers["diver_launches"]}
+    # the wireless path: each main path counted on its own
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ex = phase_exact(dev)
+        print(f"phase 18: {time.perf_counter() - t0:.3f} s wall; {ex}",
+              flush=True)
+        t0 = time.perf_counter()
+        loops = phase_wireless_loops(dev, tmp)
+        print(f"phase 19: {time.perf_counter() - t0:.3f} s wall; {loops}",
+              flush=True)
+        t0 = time.perf_counter()
+        host = phase_host_engine(dev, tmp)
+        print(f"phase 20: {time.perf_counter() - t0:.3f} s wall; {host}",
+              flush=True)
+    kernels[0]["wireless_launches"] = {**loops["launches"],
+                                       **host["launches"]}
     kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,8 +7,9 @@ datasets: the hindsight-min weighted CE against the `mwis_label` field
 `--device_batch` graphs (`rl.train.make_supervised_diver_step`), with the
 max-over-heads solution quality of `DiverAgent.solve_mwis_iterative` as the
 checkpoint gate and the hindsight accuracy / F1 on labeled test graphs.
-The port's `data.generate` labels with heuristics (``label_instance``);
-exact labels wait for `solvers/exact.py`. `--device` picks the card
+The port's `data.generate` labels with heuristics (``label_instance``), or
+with the exact optimum of the port's native branch and bound
+(``label_instance(exact=True)``). `--device` picks the card
 (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
 
 Usage:

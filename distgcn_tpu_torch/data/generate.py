@@ -1,8 +1,8 @@
 """Dataset generation — ER / BA / Poisson-geometric weighted conflict graphs.
 
 The port's own copy of `distgcn_tpu/data/generate.py`: the same files for
-the same seed. The exact labeller (`label_instance(exact=True)`) needs the
-branch-and-bound solver, which the port has not taken yet.
+the same seed. The exact labeller (`label_instance(exact=True)`) runs the
+port's own native branch and bound (`solvers/exact.py`).
 
 Re-specifies `Data_Generation.py`: graph families (:46-95), the two MWIS
 labeling heuristics (:98-146), greedy baseline (:149-153), and the saved .mat
@@ -162,12 +162,12 @@ def label_instance(adj: sp.spmatrix, wts: np.ndarray,
     (Data_Generation.py:202-213). exact=True labels with the true optimum
     via the native B&B instead — the role of the reference's powerset
     `mwis_bruteforce` (Data_Generation.py:159-178), usable far beyond
-    its ~20-node limit. The port has no B&B solver yet, so exact=True
-    raises NotImplementedError."""
+    its ~20-node limit."""
     if exact:
-        raise NotImplementedError(
-            "exact labels need solvers/exact.py, which the port has not "
-            "taken yet (ROADMAP queue A, item 15)")
+        from distgcn_tpu_torch.solvers.exact import mwis_exact
+        solu, val, _ = mwis_exact(adj, wts, exact_timeout)
+        _, v0 = greedy_search(adj, wts)
+        return set(np.asarray(solu).tolist()), float(val), v0
     m2, v2 = mwis_heuristic_maximal_sweep(adj, wts, rng)
     m1, v1 = mwis_heuristic_min_degree_ratio(adj, wts)
     _, v0 = greedy_search(adj, wts)

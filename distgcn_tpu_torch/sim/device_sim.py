@@ -1,7 +1,8 @@
 """Device-resident closed-loop wireless scheduler and online trainer.
 
 Port of `distgcn_tpu/sim/device_sim.py` (`make_slot_step`,
-`make_closed_loop`, `make_online_training_loop`). The conflict graphs, GCN
+`make_closed_loop`, the multi-channel `make_closed_loop_mc` and
+`make_closed_loop_seq`, `make_online_training_loop`). The conflict graphs, GCN
 parameters, supports, queues and the traffic RNG all live on the device; the
 T-slot episode is a Python loop that never synchronises with the host (the
 LGS kernel launches without a sync and per-slot metrics stay on the device
@@ -34,7 +35,8 @@ from distgcn_tpu_torch.agents import build_features
 from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.gcn import cast_model
 from distgcn_tpu_torch.ops.lgs import batched_lgs
-from distgcn_tpu_torch.pipeline import gcn_weights, selected_utility
+from distgcn_tpu_torch.pipeline import (_compute_dtype, gcn_weights,
+                                        selected_utility)
 from distgcn_tpu_torch.rl.train import apply_updates, first_layer_l2
 from distgcn_tpu_torch.utils.config import Config
 
@@ -83,7 +85,10 @@ def make_poisson_arrivals(lam: float):
 def slot_utilities(queue: torch.Tensor, rates: torch.Tensor, wt_sel: str,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-    """Per-slot utilities [B, N] (wireless_dqn_test.py:219-230)."""
+    """Per-slot utilities (wireless_dqn_test.py:219-230) in the broadcast
+    shape of `queue` and `rates`: [B, N], or [B, Nf, n_ch] for per-link
+    queues [B, Nf, 1] against per-channel rates."""
+    queue = queue.expand(torch.broadcast_shapes(queue.shape, rates.shape))
     if wt_sel == "qr":
         return queue * rates
     if wt_sel == "q":
@@ -101,6 +106,33 @@ def slot_utilities(queue: torch.Tensor, rates: torch.Tensor, wt_sel: str,
     raise ValueError(f"unsupported wt_sel {wt_sel}")
 
 
+def _traffic(load: float, rate_lo: float, rate_hi: float) -> Callable:
+    """draw(generator, m, n_ch=None) -> (arrivals [B,N], rates): one slot's
+    Poisson arrivals and truncated-Gaussian integer rates (trunc toward
+    zero, then clamp), zero where the float mask `m` is 0. Rates are [B,N],
+    or [B,N,n_ch] per channel. Arrivals are drawn first, then rates."""
+    draw_arrivals = make_poisson_arrivals(0.5 * (rate_lo + rate_hi) * load)
+    mean_r = 0.5 * (rate_lo + rate_hi)
+    std_r = 0.25 * (rate_hi - rate_lo)
+
+    def draw(generator: torch.Generator, m: torch.Tensor,
+             n_ch: Optional[int] = None):
+        arrivals = draw_arrivals(generator, m.shape, m.dtype) * m
+        shape, mr = (m.shape, m) if n_ch is None else \
+            ((*m.shape, n_ch), m[..., None])
+        rates = torch.randn(shape, generator=generator,
+                            device=m.device) * std_r + mean_r
+        return arrivals, torch.clamp(torch.trunc(rates), rate_lo,
+                                     rate_hi) * mr
+
+    return draw
+
+
+def _check_generator(generator: torch.Generator, dev: torch.device) -> None:
+    if _index(generator.device) != _index(dev):
+        raise ValueError(f"generator on {generator.device}, inputs on {dev}")
+
+
 def _gcn_scorer(model, flags: Config, feature_mode: str) -> Callable:
     """scores(supports, wts, mask) -> LGS weights, running the GCN on
     features in the supports' dtype."""
@@ -110,6 +142,24 @@ def _gcn_scorer(model, flags: Config, feature_mode: str) -> Callable:
         return gcn_weights(model, feats.to(supports.dtype), supports, wts,
                            mask, flags.predict)
     return scores
+
+
+def _episode_scorer(model, flags: Config, feature_mode: str, adj, mask):
+    """(supports, scores) for one episode on a static graph: the masked
+    supports and the model cast once to the episode dtype
+    (``flags.compute_dtype``). With ``feature_mode='gdpg'`` and
+    ``predict='mwis'`` the features do not depend on the weights, so the
+    GCN runs here once and `scores` only multiplies (XLA hoists the same
+    computation out of the JAX scan); otherwise it runs every call."""
+    dtype = _compute_dtype(flags)
+    supports = prep.masked_simple_polynomials_dense(
+        adj, mask, flags.max_degree).to(dtype)
+    scores = _gcn_scorer(cast_model(model, dtype), flags, feature_mode)
+    if flags.predict == "mwis" and feature_mode == "gdpg":
+        act = scores(supports, torch.ones(mask.shape, device=mask.device),
+                     mask)
+        return supports, lambda supports, wts, mask: act * wts
+    return supports, scores
 
 
 def _slot(scores: Optional[Callable], wt_sel: str, supports, adjb, mask,
@@ -172,40 +222,24 @@ def make_closed_loop(model, flags: Config, timeslots: int,
     episode (XLA hoists the same computation out of the JAX scan); every
     other mode runs the GCN every slot.
     """
-    draw_arrivals = make_poisson_arrivals(0.5 * (rate_lo + rate_hi) * load)
-    mean_r = 0.5 * (rate_lo + rate_hi)
-    std_r = 0.25 * (rate_hi - rate_lo)
-    hoist = use_gcn and flags.predict == "mwis" and feature_mode == "gdpg"
-    dtype = (torch.bfloat16 if flags.compute_dtype == "bfloat16"
-             else torch.float32)
+    traffic = _traffic(load, rate_lo, rate_hi)
 
     @torch.no_grad()
     def run(adj, mask, queue0, generator: torch.Generator):
         dev = queue0.device
-        if _index(generator.device) != _index(dev):
-            raise ValueError(f"generator on {generator.device}, inputs on "
-                             f"{dev}")
+        _check_generator(generator, dev)
         m = mask.to(queue0.dtype)
         adjb = adj > 0
         supports, scores = None, None
         if use_gcn:
-            supports = prep.masked_simple_polynomials_dense(
-                adj, mask, flags.max_degree).to(dtype)
-            scores = _gcn_scorer(cast_model(model, dtype), flags,
-                                 feature_mode)
-            if hoist:
-                act = scores(supports, torch.ones_like(queue0), mask)
-                scores = lambda supports, wts, mask: act * wts  # noqa: E731
+            supports, scores = _episode_scorer(model, flags, feature_mode,
+                                               adj, mask)
         n_stats = 4 if with_baseline else 3
         stats = torch.empty((timeslots, n_stats, queue0.shape[0]),
                             dtype=torch.float32, device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals = draw_arrivals(generator, queue.shape, queue.dtype) * m
-            # truncated-Gaussian integer rates: trunc toward zero, then clamp
-            rates = torch.randn(queue.shape, generator=generator,
-                                device=dev) * std_r + mean_r
-            rates = torch.clamp(torch.trunc(rates), rate_lo, rate_hi) * m
+            arrivals, rates = traffic(generator, m)
             queue, sel, util, wts = _slot(scores, wt_sel, supports, adjb,
                                           mask, queue, arrivals, rates)
             stats[t, 0] = (queue * m).sum(dim=-1)
@@ -223,6 +257,75 @@ def make_closed_loop(model, flags: Config, timeslots: int,
             metrics["avg_utility_ratio"] = (
                 stats[:, 1] / torch.clamp(stats[:, 3], min=1e-9)).mean(dim=0)
         return queue, metrics
+
+    return run
+
+
+def make_closed_loop_mc(model, flags: Config, timeslots: int, n_ch: int,
+                        load: float = 0.9, rate_lo: float = 0.0,
+                        rate_hi: float = 100.0, wt_sel: str = "qr",
+                        feature_mode: str = "gdpg", use_gcn: bool = True):
+    """Multi-channel closed loop on the product conflict graph.
+
+    One node per (link, channel), per-channel conflict edges plus a
+    single-radio clique across a link's channel copies
+    (wireless_rollout_test_flood.py:98-133); flat node id = ch*nflows+link
+    (order='F', wireless_dqn_test_mc.py:229; `data.wireless.
+    pad_product_graph` for padded batches). Queues are per LINK; a scheduled
+    (link, ch) drains at that channel's rate (the clique allows at most one
+    channel per link). One LGS launch a slot. Supports, GCN hoist and bf16
+    casts as in `make_closed_loop`; the link mask is tiled over the
+    channels, so a padded product node can neither enter a schedule nor
+    block one.
+
+    Returns run(adj_gk, link_mask, queue0, generator) ->
+      (queueT [B,Nf], {"avg_queue_len": [B], "avg_utility": [B],
+                       "sched_rate": [B]})
+    with adj_gk [B, n_ch*Nf, n_ch*Nf] and link_mask [B, Nf].
+    """
+    traffic = _traffic(load, rate_lo, rate_hi)
+
+    @torch.no_grad()
+    def run(adj_gk, link_mask, queue0, generator: torch.Generator):
+        dev = queue0.device
+        _check_generator(generator, dev)
+        b, nf = queue0.shape
+        nk = adj_gk.shape[-1]
+        if nk != n_ch * nf:
+            raise ValueError(f"product graph of {nk} nodes for {n_ch} "
+                             f"channels x {nf} links")
+        m = link_mask.to(queue0.dtype)
+        mask_k = link_mask.tile(1, n_ch)                    # [B, nch*Nf]
+        adjb = adj_gk > 0
+        supports, scores = None, None
+        if use_gcn:
+            supports, scores = _episode_scorer(model, flags, feature_mode,
+                                               adj_gk, mask_k)
+        stats = torch.empty((timeslots, 3, b), dtype=torch.float32,
+                            device=dev)
+        queue = queue0
+        for t in range(timeslots):
+            arrivals, rates = traffic(generator, m, n_ch)   # rates [B,Nf,C]
+            queue = queue + arrivals
+            wts3 = slot_utilities(queue[:, :, None], rates, wt_sel,
+                                  generator)
+            # order='F' flatten: node ch*nflows+link
+            wts = wts3.transpose(1, 2).reshape(b, nk) * mask_k
+            gcn_wts = wts if scores is None else scores(supports, wts,
+                                                        mask_k)
+            sel = batched_lgs(adjb, gcn_wts, mask_k)[0]
+            on3 = (sel == 1).reshape(b, n_ch, nf).to(queue.dtype)
+            capacity = (rates.transpose(1, 2) * on3).sum(dim=1)
+            queue = queue - torch.minimum(queue, capacity)
+            stats[t, 0] = (queue * m).sum(dim=-1)
+            stats[t, 1] = selected_utility(sel, wts)
+            stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
+        nreal = torch.clamp(m.sum(dim=-1), min=1.0)
+        return queue, {
+            "avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
+            "avg_utility": stats[:, 1].mean(dim=0),
+            "sched_rate": stats[:, 2].mean(dim=0) / nreal,
+        }
 
     return run
 
@@ -298,17 +401,13 @@ def make_online_training_loop(model, flags: Config, optimizer,
       (opt_state, queueT,
        {"loss": [T], "avg_utility_ratio": [T], "avg_queue_len": [B]}).
     """
-    draw_arrivals = make_poisson_arrivals(0.5 * (rate_lo + rate_hi) * load)
-    mean_r = 0.5 * (rate_lo + rate_hi)
-    std_r = 0.25 * (rate_hi - rate_lo)
+    traffic = _traffic(load, rate_lo, rate_hi)
     step = make_online_train_step(model, flags, optimizer, wt_sel,
                                   feature_mode)
 
     def run(opt_state, adj, mask, queue0, generator: torch.Generator):
         dev = queue0.device
-        if _index(generator.device) != _index(dev):
-            raise ValueError(f"generator on {generator.device}, inputs on "
-                             f"{dev}")
+        _check_generator(generator, dev)
         m = mask.to(queue0.dtype)
         supports = prep.masked_simple_polynomials_dense(adj, mask,
                                                         flags.max_degree)
@@ -318,10 +417,7 @@ def make_online_training_loop(model, flags: Config, optimizer,
                                 dtype=torch.float32, device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals = draw_arrivals(generator, queue.shape, queue.dtype) * m
-            rates = torch.randn(queue.shape, generator=generator,
-                                device=dev) * std_r + mean_r
-            rates = torch.clamp(torch.trunc(rates), rate_lo, rate_hi) * m
+            arrivals, rates = traffic(generator, m)
             opt_state, queue, slot = step(opt_state, supports, adjb, mask,
                                           queue, arrivals, rates)
             stats[t, 0] = slot["loss"]
@@ -331,5 +427,73 @@ def make_online_training_loop(model, flags: Config, optimizer,
         return opt_state, queue, {
             "loss": stats[:, 0], "avg_utility_ratio": stats[:, 1],
             "avg_queue_len": queue_sum.mean(dim=0) / nreal}
+
+    return run
+
+
+def make_closed_loop_seq(model, flags: Config, timeslots: int, n_ch: int,
+                         load: float = 0.9, rate_lo: float = 0.0,
+                         rate_hi: float = 100.0, feature_mode: str = "gdpg",
+                         use_gcn: bool = True):
+    """Sequential multi-channel scheduling (LGS-Seq / DGCN-LGS-Seq) on the
+    device — the reference's channel-by-channel algorithm with queue-drain
+    estimates (wireless_dqn_test_mc.py:292-354, wt_sel='qr'):
+
+    for each channel ic: utilities = q_est * rate_ic over that channel's own
+    conflict graph; links with zero utility are masked out (the host
+    version deletes them from the subgraph: either way they can neither
+    enter nor block); scheduled links' drain estimate min(q_est, rate_ic)
+    carries to the next channel's utilities. One GCN forward (the features
+    follow each channel's mask, so nothing is hoisted) and one LGS launch
+    per channel: n_ch launches a slot. Supports per channel are built once;
+    bf16 episodes cast them and the model once.
+
+    adj_ch: [B, n_ch, Nf, Nf] per-channel conflict adjacencies (static).
+    Returns run(adj_ch, link_mask, queue0, generator) ->
+      (queueT [B,Nf], {"avg_queue_len": [B], "avg_utility": [B]}).
+    """
+    traffic = _traffic(load, rate_lo, rate_hi)
+    dtype = _compute_dtype(flags)
+
+    @torch.no_grad()
+    def run(adj_ch, link_mask, queue0, generator: torch.Generator):
+        dev = queue0.device
+        _check_generator(generator, dev)
+        b, _ = queue0.shape
+        m = link_mask.to(queue0.dtype)
+        adjb_ch = [(adj_ch[:, ic] > 0).contiguous() for ic in range(n_ch)]
+        sup_ch, scores = None, None
+        if use_gcn:
+            sup_ch = [prep.masked_simple_polynomials_dense(
+                adj_ch[:, ic], link_mask, flags.max_degree).to(dtype)
+                for ic in range(n_ch)]
+            scores = _gcn_scorer(cast_model(model, dtype), flags,
+                                 feature_mode)
+        stats = torch.empty((timeslots, 2, b), dtype=torch.float32,
+                            device=dev)
+        queue = queue0
+        for t in range(timeslots):
+            arrivals, rates = traffic(generator, m, n_ch)
+            queue = queue + arrivals
+            q_est = queue
+            total_cap = torch.zeros_like(queue)
+            util = torch.zeros((b,), dtype=queue.dtype, device=dev)
+            for ic in range(n_ch):
+                rate_ic = rates[:, :, ic]
+                wts_ic = q_est * rate_ic                    # qr utilities
+                mask_ic = link_mask & (wts_ic > 0)
+                gw = wts_ic if scores is None else scores(sup_ch[ic],
+                                                          wts_ic, mask_ic)
+                sel = batched_lgs(adjb_ch[ic], gw, mask_ic)[0]
+                on = (sel == 1).to(queue.dtype)
+                util = util + (wts_ic * on).sum(dim=-1)
+                total_cap = total_cap + rate_ic * on
+                q_est = q_est - torch.minimum(q_est, rate_ic) * on
+            queue = queue - torch.minimum(queue, total_cap)
+            stats[t, 0] = (queue * m).sum(dim=-1)
+            stats[t, 1] = util
+        nreal = torch.clamp(m.sum(dim=-1), min=1.0)
+        return queue, {"avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
+                       "avg_utility": stats[:, 1].mean(dim=0)}
 
     return run

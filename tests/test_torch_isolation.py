@@ -57,8 +57,42 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
                 "solvers.greedy", "compat.tf1_ckpt", "rl.losses", "rl.train",
                 "rl.checkpoint", "cli.train_gdpg", "solvers.iterative",
                 "agents_extra", "cli.eval_graphs", "cli.train_dqn",
-                "cli.train_diver"):
+                "cli.train_diver", "solvers.exact", "solvers.relax",
+                "data.wireless", "sim.wireless", "cli.wireless_sim",
+                "cli.gen_data", "cli.benchmark_solver"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
+    assert result["banned"] == []
+
+
+_NATIVE_PROBE = """
+import json, sys
+from distgcn_tpu_torch.solvers import exact
+from distgcn_tpu_torch.sim import wireless
+path = exact.native_library()
+exact.mwis_exact([[0, 1], [1, 0]], [1.0, 2.0], 1.0)
+with open("/proc/self/maps") as f:
+    maps = sorted({line.split()[-1] for line in f if "/" in line})
+banned = {"jax", "jaxlib", "flax", "optax", "distgcn_tpu", "pandas"}
+print(json.dumps({"path": path, "maps": maps,
+                  "banned": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in banned)}))
+"""
+
+
+def test_exact_solver_loads_only_the_ports_own_library():
+    """The port builds and maps its own copy of the native solver, never
+    the JAX package's library or source."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    jax_native = os.path.join(REPO, "distgcn_tpu", "native") + os.sep
+    own = os.path.join(REPO, "build", "native") + os.sep
+    assert os.path.realpath(result["path"]).startswith(own)
+    assert result["path"] in result["maps"]
+    assert not [m for m in result["maps"] if m.startswith(jax_native)]
     assert result["banned"] == []
 
 
@@ -125,6 +159,19 @@ def test_eval_and_train_clis_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         eval_graphs.main(["--datapath=/nonexistent", "--rollout=1",
                           "--model_root=/nonexistent"])
+
+
+@pytest.mark.parametrize("device_loop", [0, 1])
+def test_wireless_cli_defaults_to_the_card(tmp_path, device_loop):
+    """`wireless_sim` takes the card unless asked for the CPU, in the host
+    engine and in the device loop, before it reads any network."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from distgcn_tpu_torch.cli import wireless_sim
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wireless_sim.main([f"--test_datapath={tmp_path}", "--opt=7",
+                           f"--device_loop={device_loop}",
+                           f"--output={tmp_path}"])
 
 
 def test_cpu_device_sets_full_f32_matmuls():

@@ -71,8 +71,9 @@ def test_generate_helpers_and_wireless_networks_match_jax(tmp_path):
     w = np.random.default_rng(3).random(30)
     assert generate.label_instance(a, w, np.random.default_rng(4)) == \
         jgen.label_instance(a, w, np.random.default_rng(4))
-    with pytest.raises(NotImplementedError, match="exact"):
-        generate.label_instance(a, w, exact=True)
+    # exact labels: the port's own native B&B, equal to JAX's
+    assert generate.label_instance(a, w, exact=True) == \
+        jgen.label_instance(a, w, exact=True)
     assert generate.generate_wireless_network(
         str(tmp_path / "t"), n_networks=2, area=30.0, n_nodes=12, seed=6) == \
         jgen.generate_wireless_network(
