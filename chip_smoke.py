@@ -163,7 +163,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    into exact solver and agent time; the largest network (81 links) at
    load 0.9, with the exact solves that ran the B&B's local search counted;
    one `--opt=5` (DGCN-LGS-Seq) instance at n_ch=3 with
-   `--benchmark=greedy`, its B1 calls against the plain version.
+   `--benchmark=greedy`, its B1 calls against the plain version;
+21. the data-parallel train step and the multi-card dry run, in a one-rank
+   NCCL group: `parallel.mesh.make_sharded_train_step` on the ERGDPG2
+   l20 c32 checkpoint at B=128, N=256 (seeded graphs of 100..256 nodes,
+   seeded labels), its loss and updated parameters against the unsharded
+   step on the card (autograd of the same loss and one TF1 update, no
+   collectives) and against the same step on the CPU (rtol 1e-5, atol
+   1e-6); ms per step as the marginal of 2 and 6 steps, the kernels one
+   step enqueues, a `utils.profiling.StepTimer` over 4 steps and a
+   `utils.profiling.trace` of two steps (its three costliest CUDA
+   kernels); then `dryrun.entry` and `dryrun.dryrun_multichip(1)`: every
+   selection independent and maximal, and every call of B1 (against
+   `batched_lgs_plain`), of the SpMM (bit-equal to `edge_spmm_plain` in
+   the kernel's order on the CPU; `bsr_spmm_plain` within rtol 2e-5, atol
+   1e-5) and of both neighbour-maxes (bit-equal to `bsr_nbr_max_plain`)
+   on the run's own tensors.
 
 The launch counts of the JSON line come from the main paths: phase 4 for the
 LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the int32
@@ -174,7 +189,7 @@ the same way: phase 12's 40 solves, phase 13's `train_gdpg` epoch and phase
 mode), `eval_launches` phases 15 and 17, and `wireless_launches` the
 main paths of phases 19 (the two CLI sweeps, the sequential episode) and
 20 (the host engine's first call, the largest network's pair, the
-DGCN-LGS-Seq run). `model/` is only
+DGCN-LGS-Seq run); `dryrun_launches` phase 21's `dryrun_multichip(1)`. `model/` is only
 read: the trainers write into temporary copies. Runs of the sharded path across
 several cards (D > 1 over NCCL) need a multi-card machine; this script
 takes one card.
@@ -208,6 +223,7 @@ from torch.profiler import ProfilerActivity, profile
 from distgcn_tpu_torch.agents import DQNAgent, build_state_arrays
 from distgcn_tpu_torch.agents_extra import DiverAgent, LegacyDQNAgent
 from distgcn_tpu_torch.cli import eval_graphs, train_diver, train_dqn
+from distgcn_tpu_torch import dryrun
 from distgcn_tpu_torch.cli import train_gdpg, wireless_sim
 from distgcn_tpu_torch.core.graph import GraphBatch
 from distgcn_tpu_torch.core.prep import normalize_adj
@@ -244,14 +260,17 @@ from distgcn_tpu_torch.ops.spmm import (I32_SENT, NEG_HUGE, BsrMatrix,
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
 from distgcn_tpu_torch.parallel import distributed
 from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
+from distgcn_tpu_torch.parallel import large_sharded as large_sharded_mod
 from distgcn_tpu_torch.parallel.large_sharded import (make_sharded_large_solve,
                                                       shard_arrays,
                                                       shard_large_graph)
+from distgcn_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
 from distgcn_tpu_torch import agents as agents_mod
 from distgcn_tpu_torch import pipeline as pipeline_mod
 from distgcn_tpu_torch.pipeline import (make_solve_pipeline,
                                         make_train_pipeline)
-from distgcn_tpu_torch.rl.train import make_optimizer
+from distgcn_tpu_torch.rl.train import (apply_updates, first_layer_l2,
+                                        make_optimizer)
 from distgcn_tpu_torch.sim import device_sim
 from distgcn_tpu_torch.sim import wireless as sim_wireless
 from distgcn_tpu_torch.sim.device_sim import (make_closed_loop,
@@ -262,6 +281,7 @@ from distgcn_tpu_torch.solvers import exact, iterative
 from distgcn_tpu_torch.solvers.greedy import greedy_search
 from distgcn_tpu_torch.utils.config import Config
 from distgcn_tpu_torch.utils.directory import find_model_folder
+from distgcn_tpu_torch.utils.profiling import StepTimer, trace
 from distgcn_tpu_torch.utils.serialization import load_params
 
 B, N = 128, 256
@@ -2424,6 +2444,240 @@ def phase_host_engine(dev, tmp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel train step and the multi-card dry run (phase 21)
+# ---------------------------------------------------------------------------
+
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
+
+
+def unsharded_step(model, cfg, opt, state, adj, wts, maskf, labels):
+    """The JAX step's loss (`distgcn_tpu/parallel/mesh.py:70-83`) on the
+    whole batch, autograd and one `opt` update: no collectives."""
+    feats, sups = build_state_arrays(adj, wts, maskf > 0, cfg.feature_size,
+                                     cfg.max_degree, cfg.predict)
+    out = model(feats, sups)
+    err = (out[..., :1] - labels) ** 2
+    mse = (err[..., 0] * maskf).sum(-1) / maskf.sum(-1).clamp(min=1.0)
+    loss = torch.sqrt(mse).mean() + cfg.weight_decay * first_layer_l2(model)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    updates, state = opt.update(dict(zip(params, grads)), state)
+    apply_updates(params, updates)
+    return state, loss.detach()
+
+
+def params_diff(got, want) -> float:
+    """The largest |got - want| beyond rtol x |want| over the parameters
+    (<= STEP_ATOL passes)."""
+    worst = 0.0
+    ref = want.state_dict()
+    for k, v in got.state_dict().items():
+        w = ref[k].to(v.device)
+        worst = max(worst, float(((v - w).abs()
+                                  - STEP_RTOL * w.abs()).max()))
+    return worst
+
+
+def top_kernels(logdir: str, k: int = 3):
+    """The k CUDA kernels with the most device time in the Chrome trace
+    `utils.profiling.trace` wrote into `logdir`, as (name, ms, calls), and
+    the ms of every kernel in the trace."""
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    check(len(files) == 1, f"trace files in {logdir}: {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    tot = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms, n = tot.get(e["name"], (0.0, 0))
+            tot[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    check(len(tot) > 0, "the trace holds no CUDA kernel")
+    top = sorted(((n, ms, c) for n, (ms, c) in tot.items()),
+                 key=lambda t: -t[1])[:k]
+    return top, sum(ms for ms, _ in tot.values())
+
+
+def step_batch(dev):
+    """Phase 21's batch: B seeded graphs of 100..256 nodes padded to 256
+    and seeded labels, as (adj, wts, mask float, labels [B, N, 1]) on
+    `dev`."""
+    rng = np.random.default_rng(21)
+    adjs, wtss = graphs(rng, B, N_MIN, N)
+    gb = GraphBatch.from_scipy(adjs, wtss, pad_to=N, device=dev)
+    labels = torch.from_numpy(rng.random((B, N, 1)).astype(np.float32))
+    return gb.adj, gb.wts, gb.mask.to(torch.float32), labels.to(dev)
+
+
+def phase_train_step(dev, tree, tmp) -> dict:
+    """Phase 21a: the sharded train step at full width against the
+    unsharded step on the card and the same step on the CPU; its time."""
+    cfg = train_config()
+    batch = step_batch(dev)
+    cpu_batch = tuple(t.cpu() for t in batch)
+    opt = make_optimizer(TRAIN_LR)
+    mesh = make_mesh()
+    check(mesh.shape == {"data": 1, "model": 1} and dist.is_initialized(),
+          f"mesh {mesh.shape} in the one-rank group")
+    models = {where: make_model_from_config(
+        cfg, "gcn2_dqn", params=params_from_jax(tree), device=d)
+        for where, d in (("card", dev), ("plain", dev), ("cpu", "cpu"))}
+    states = {k: opt.init(dict(m.named_parameters()))
+              for k, m in models.items()}
+    step = make_sharded_train_step(models["card"], cfg, opt, mesh)
+    states["card"], loss = step(states["card"], *batch)
+    states["plain"], ploss = unsharded_step(models["plain"], cfg, opt,
+                                            states["plain"], *batch)
+    states["cpu"], closs = make_sharded_train_step(
+        models["cpu"], cfg, opt, mesh)(states["cpu"], *cpu_batch)
+    torch.cuda.synchronize()
+    lrel = {k: abs(float(loss) - float(v)) / abs(float(v))
+            for k, v in (("plain", ploss), ("cpu", closs))}
+    pdiff = {k: params_diff(models["card"], models[k])
+             for k in ("plain", "cpu")}
+    check(np.isfinite(float(loss)) and max(lrel.values()) <= STEP_RTOL,
+          f"sharded step loss {float(loss)} vs unsharded card / CPU: "
+          f"rel {lrel}")
+    check(max(pdiff.values()) <= STEP_ATOL, f"sharded step parameters vs "
+          f"unsharded card / CPU: beyond rtol {STEP_RTOL} by {pdiff}")
+
+    def one(i=0):
+        states["card"], _ = step(states["card"], *batch)
+
+    per_s = marginal_s(one)
+    timer = StepTimer("sharded train step", device=dev)
+    edges = int((batch[0] > 0).sum()) // 2
+    for _ in range(4):
+        with timer:
+            one()
+        timer.add(graphs=B, edges=edges)
+    enqueued = len(kernels_enqueued(one))
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        one()
+        one()
+        torch.cuda.synchronize()
+    top, busy_ms = top_kernels(logdir)
+    print(f"phase 21: make_sharded_train_step gcn2_dqn ERGDPG2 l20 c32, "
+          f"B={B} N={N}, mesh {mesh.shape}: loss {float(loss):.6f}, rel "
+          f"diff vs the unsharded card step {lrel['plain']:.3g}, vs the CPU "
+          f"{lrel['cpu']:.3g}; parameters beyond rtol {STEP_RTOL}: card "
+          f"{pdiff['plain']:.3g}, CPU {pdiff['cpu']:.3g} (atol "
+          f"{STEP_ATOL}); per step {per_s * 1e3:.4f} ms (marginal of 2 and "
+          f"6 steps), {enqueued} kernels enqueued per step", flush=True)
+    print(f"phase 21: {timer.summary()}", flush=True)
+    print(f"phase 21: trace of two steps: {busy_ms / 2:.4f} ms of CUDA "
+          f"kernels a step; costliest: "
+          + "; ".join(f"{name[:60]} {ms:.4f} ms in {c} calls"
+                      for name, ms, c in top), flush=True)
+    return {"ms_per_step": per_s * 1e3, "kernels_per_step": enqueued,
+            "kernel_ms_per_step": busy_ms / 2, "loss_rel": lrel,
+            "params_excess": pdiff}
+
+
+@contextlib.contextmanager
+def sharded_calls():
+    """Records the inputs and outputs of every SpMM and neighbour-max call
+    `parallel.large_sharded` makes while open (the real calls run)."""
+    calls = []
+    real = {name: getattr(large_sharded_mod, name)
+            for name in ("spmm_rows", "nbr_max_rows")}
+
+    def recorder(name):
+        def call(*args):
+            out = real[name](*args)
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args), out.clone()))
+            return out
+        return call
+
+    for name in real:
+        setattr(large_sharded_mod, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(large_sharded_mod, name, fn)
+
+
+def sharded_vs_plain(calls) -> dict:
+    """Each recorded kernel call against its plain version on the same
+    tensors: the neighbour-maxes bit-equal to `bsr_nbr_max_plain`; the
+    SpMM bit-equal to `edge_spmm_plain` (each row's edges summed in the
+    kernel's order, run on the CPU, whose `index_add_` adds in that order)
+    and within phase 6's rtol 2e-5 / atol 1e-5 of `bsr_spmm_plain`.
+    Returns the calls checked per kernel and the SpMM's largest
+    difference."""
+    seen = {"bsr_spmm": 0, "bsr_nbr_max": 0, "bsr_nbr_max_i32": 0}
+    worst = 0.0
+    for name, (words, rptr, cols, x, n, bs, bitmap), got in calls:
+        check(bitmap and got.is_cuda, f"dry run {name}: bitmap {bitmap}")
+        if name == "nbr_max_rows":
+            want = bsr_nbr_max_plain(words, rptr, cols, x, n, bs, bitmap)
+            bits = (got, want) if x.dtype == torch.int32 else (
+                got.view(torch.int32), want.view(torch.int32))
+            check(torch.equal(*bits), f"dry run neighbour-max ({x.dtype}) "
+                  "differs from its plain version")
+            seen["bsr_nbr_max_i32" if x.dtype == torch.int32
+                 else "bsr_nbr_max"] += 1
+            continue
+        ordered = edge_spmm_plain(words.cpu(), rptr.cpu(), cols.cpu(), None,
+                                  None, x.cpu(), n, bs)
+        check(torch.equal(got.cpu(), ordered), "dry run SpMM differs from "
+              "edge_spmm_plain in the kernel's order")
+        want = bsr_spmm_plain(words, rptr, cols, x, n, bs, bitmap)
+        worst = max(worst, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
+              f"dry run SpMM: max abs diff {worst} from bsr_spmm_plain")
+        seen["bsr_spmm"] += 1
+    return {"calls": seen, "spmm_max_abs_err": worst}
+
+
+def phase_dryrun(dev) -> dict:
+    """Phase 21b: `dryrun.entry` and `dryrun.dryrun_multichip(1)` on the
+    card; every selection valid, every kernel call against its plain
+    version, the dry run's launch counts."""
+    with lgs_calls([pipeline_mod]) as entry_calls:
+        fn, (adj, wts, mask) = dryrun.entry(dev)
+        sel, util, gutil = fn(adj, wts, mask)
+        torch.cuda.synchronize()
+    check(independent_and_maximal(sel, adj, mask),
+          "entry: a schedule is not independent and maximal")
+    entry_graphs = lgs_vs_plain(entry_calls, "entry")
+    with lgs_calls([pipeline_mod]) as b1, sharded_calls() as kernels:
+        reset_launch_counts()
+        out = dryrun.dryrun_multichip(1, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    check(counts["lgs"] > 0 and counts["bsr_spmm"] > 0
+          and counts["bsr_nbr_max"] > 0 and counts["cheb_fused"] == 0,
+          f"dry run launches {counts}")
+    check(independent_and_maximal(out["sel"], out["adj"], out["mask"]),
+          "dry run: a batch schedule is not independent and maximal")
+    gsel = out["giant_sel"].cpu().numpy()
+    check(schedule_ok(torch.from_numpy(gsel), out["giant_adj"],
+                      gsel.size), "dry run: the giant-graph schedule")
+    graphs_b1 = lgs_vs_plain(b1, "dry run")
+    held = sharded_vs_plain(kernels)
+    check(held["calls"]["bsr_spmm"] == counts["bsr_spmm"]
+          and held["calls"]["bsr_nbr_max"] == counts["bsr_nbr_max"]
+          and held["calls"]["bsr_nbr_max_i32"] == counts["bsr_nbr_max_i32"],
+          f"held {held['calls']} of the launches {counts}")
+    print(f"phase 21: dryrun.entry: 8 schedules independent and maximal, "
+          f"mean utility {float(util.mean()):.6f} (greedy "
+          f"{float(gutil.mean()):.6f}), B1 equal to its plain version on "
+          f"{entry_graphs} graphs", flush=True)
+    print(f"phase 21: dryrun_multichip(1): mesh {out['mesh']}, loss "
+          f"{out['loss']:.6f}, mean_util {out['mean_util']:.6f}, "
+          f"giant_graph_util {out['giant_graph_util']:.6f}; launches "
+          f"{counts}; B1 equal to its plain version on {graphs_b1} graphs; "
+          f"calls held against their plain versions {held['calls']} (SpMM "
+          f"bit-equal in the kernel's order, max abs diff "
+          f"{held['spmm_max_abs_err']:.3g} from bsr_spmm_plain)",
+          flush=True)
+    return {"launches": counts, "held": held}
+
+
 COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
            "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
            "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
@@ -2542,6 +2796,15 @@ def main() -> int:
               flush=True)
     kernels[0]["wireless_launches"] = {**loops["launches"],
                                        **host["launches"]}
+    # the data-parallel train step and the dry run in a one-rank group
+    with tempfile.TemporaryDirectory() as tmp, nccl_group(dev):
+        t0 = time.perf_counter()
+        step = phase_train_step(dev, tree, tmp)
+        dry = phase_dryrun(dev)
+        print(f"phase 21: {time.perf_counter() - t0:.3f} s wall; {step}",
+              flush=True)
+    for k in kernels:
+        k["dryrun_launches"] = dry["launches"][k["name"]]
     kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -126,3 +126,16 @@ class GraphBatch:
         nn = self.nn.cpu().numpy()
         return [sp.csr_matrix(adj[i, : nn[i], : nn[i]])
                 for i in range(self.batch_size)]
+
+
+def block_diag_stack(adjs: Sequence[Union[sp.spmatrix, np.ndarray]]
+                     ) -> sp.csr_matrix:
+    """Block-diagonal stack of adjacencies (the reference's `dstack`,
+    gcn/utils.py:315-322, for k graphs)."""
+    return sp.block_diag([sp.csr_matrix(a) for a in adjs]).tocsr()
+
+
+def edges_from_dense(adj) -> tuple:
+    """Upper-triangular edge list (i, j) arrays of a dense adjacency."""
+    iu, ju = np.nonzero(np.triu(np.asarray(adj), k=1))
+    return iu, ju

@@ -14,8 +14,21 @@ Port of the dense half of `distgcn_tpu/core/prep.py` (the reference's
 
 Normalization math always runs in f32, on any [..., N, N] batch.
 
-``normalize_adj`` is the host (scipy) normalization the large-graph
-builder uses, float64 as in the reference.
+The host (scipy/numpy) half, float64 as in the reference, for host-side
+parity, dataset tools and the large-graph builder (`normalize_adj`):
+
+- ``normalize_adj``: D^-1/2 A D^-1/2 (gcn/utils.py:120-128);
+- ``preprocess_adj``: normalize_adj(A + I) (gcn/utils.py:130-135);
+- ``laplacian_support``: L = I - normalize_adj(A);
+- ``simple_polynomials``: [I, L, .., L^K], no self loops (gcn/utils.py:
+  258-274), the support set every agent uses;
+- ``chebyshev_polynomials``: the scaled-Laplacian Chebyshev recurrence
+  (gcn/utils.py:235-255);
+- ``plain_polynomials``: [I, I - A, (I - A)^2, ..], unnormalized
+  (gcn/utils.py:325-340);
+- ``preprocess_features``: row normalization, zero-sum rows -> 0
+  (gcn/utils.py:98-106);
+- ``sparse_to_tuple``: the reference's COO feed format (gcn/utils.py:79-95).
 """
 
 from __future__ import annotations
@@ -36,6 +49,69 @@ def normalize_adj(adj) -> sp.coo_matrix:
     d = sp.diags(d_inv_sqrt)
     # (A @ D^-1/2)^T @ D^-1/2 == D^-1/2 A^T D^-1/2; A is symmetric
     return adj.dot(d).transpose().dot(d).tocoo()
+
+
+def preprocess_adj(adj) -> sp.coo_matrix:
+    """normalize_adj(A + I) (gcn/utils.py:130-135)."""
+    return normalize_adj(adj + sp.eye(adj.shape[0]))
+
+
+def laplacian_support(adj) -> sp.csr_matrix:
+    """L = I - normalize_adj(A)."""
+    return (sp.eye(adj.shape[0]) - normalize_adj(adj)).tocsr()
+
+
+def simple_polynomials(adj, k: int) -> list:
+    """[I, L, L^2, ..., L^k] with L = I - normalize_adj(A)
+    (gcn/utils.py:258-274)."""
+    lap = laplacian_support(adj)
+    t_k = [sp.eye(adj.shape[0]).tocsr(), lap]
+    for _ in range(2, k + 1):
+        t_k.append(t_k[-1] @ lap)
+    return t_k[: k + 1]
+
+
+def chebyshev_polynomials(adj, k: int) -> list:
+    """Chebyshev recurrence on the scaled Laplacian 2 L / lambda_max - I
+    (gcn/utils.py:235-255); lambda_max from ARPACK (`scipy.sparse.linalg.
+    eigs`, the largest real part)."""
+    from scipy.sparse.linalg import eigs
+
+    lap = laplacian_support(adj)
+    largest_eigval, _ = eigs(lap, 1, which="LR", maxiter=5000)
+    scaled_lap = (2.0 / largest_eigval[0].real) * lap - sp.eye(adj.shape[0])
+    t_k = [sp.eye(adj.shape[0]).tocsr(), scaled_lap.tocsr()]
+    for _ in range(2, k + 1):
+        t_k.append(2.0 * (scaled_lap @ t_k[-1]) - t_k[-2])
+    return t_k[: k + 1]
+
+
+def plain_polynomials(adj, k: int) -> list:
+    """[I, I - A, (I - A)^2, ...], unnormalized (gcn/utils.py:325-340)."""
+    lap = (sp.eye(adj.shape[0]) - adj).tocsr()
+    t_k = [sp.eye(adj.shape[0]).tocsr(), lap]
+    for _ in range(2, k + 1):
+        t_k.append(t_k[-1] @ lap)
+    return t_k[: k + 1]
+
+
+def preprocess_features(features) -> np.ndarray:
+    """Row-normalize a host [N, F] array in float64; rows summing to 0
+    stay 0 (gcn/utils.py:98-106). Returns float32."""
+    features = np.asarray(features, dtype=np.float64)
+    rowsum = features.sum(axis=1)
+    with np.errstate(divide="ignore"):
+        r_inv = np.power(rowsum, -1.0)
+    r_inv[np.isinf(r_inv)] = 0.0
+    return (features * r_inv[:, None]).astype(np.float32)
+
+
+def sparse_to_tuple(mx):
+    """COO tuple (coords [nnz, 2], values, shape): the reference's feed
+    format (gcn/utils.py:79-95), kept for dataset and interop tools."""
+    mx = sp.coo_matrix(mx)
+    coords = np.vstack((mx.row, mx.col)).transpose()
+    return coords, mx.data, mx.shape
 
 
 def normalize_adj_dense(adj: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with nvcc for ``sm_90a`` into a shared library under
-``build/kernels/`` at the repository root (gitignored) and loaded with
-ctypes. The library's file name carries a hash of the source, the headers
+`BUILD_DIR`, ``build/kernels/`` at the repository root (gitignored) unless
+`utils.compile_cache.enable_persistent_cache` places it elsewhere, and
+loaded with ctypes. The library's file name carries a hash of the source, the headers
 of ``csrc/`` (``*.cuh``) and the flags, so an edited source or header is
 rebuilt and a stale library is never loaded. `build` starts one nvcc per
 source, all together, and keeps each ``-Xptxas -v`` report (registers,
@@ -25,8 +26,10 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
+from distgcn_tpu_torch.utils.compile_cache import REPO_BUILD
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = REPO_BUILD / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

@@ -7,8 +7,9 @@ with status in {"Optimal", "Timeout"}.
 
 The native solver is the port's own copy of the source,
 `distgcn_tpu_torch/native/mwis_exact.cpp`. At first use it is compiled with
-``g++ -O3 -march=native`` into ``build/native/`` at the repository root
-(gitignored); the library's file name carries a hash of the source, the
+``g++ -O3 -march=native`` into `BUILD_DIR`, ``build/native/`` at the
+repository root (gitignored) unless `utils.compile_cache` places it
+elsewhere; the library's file name carries a hash of the source, the
 flags and the instruction set that ``-march=native`` resolves to, so an
 edited source or another host's CPU gets a library of its own. It is built
 under a private name and renamed into place, so a process that already
@@ -39,9 +40,10 @@ import numpy as np
 import scipy.sparse as sp
 
 from distgcn_tpu_torch.solvers.greedy import greedy_search
+from distgcn_tpu_torch.utils.compile_cache import REPO_BUILD
 
 SRC = Path(__file__).resolve().parent.parent / "native" / "mwis_exact.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_DIR = REPO_BUILD / "native"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 300
 

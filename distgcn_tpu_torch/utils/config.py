@@ -2,6 +2,7 @@
 
 A plain dataclass whose field names and defaults mirror the reference's TF1
 flags, so checkpoint-directory naming and script presets translate 1:1.
+`Config.from_args` also places the build cache (`utils.compile_cache`).
 """
 
 from __future__ import annotations
@@ -90,6 +91,12 @@ class Config:
                 parser.add_argument(f"--{f.name}", type=type(default),
                                     default=default)
         ns, _ = parser.parse_known_args(argv)
+        # every CLI driver funnels through here: place the kernel and
+        # native builds where DISTGCN_TORCH_CACHE says, so repeat runs
+        # skip nvcc and g++
+        from distgcn_tpu_torch.utils.compile_cache import \
+            enable_persistent_cache
+        enable_persistent_cache()
         return cls(**vars(ns))
 
 

@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_no_jax_or_jax_package():
                 "agents_extra", "cli.eval_graphs", "cli.train_dqn",
                 "cli.train_diver", "solvers.exact", "solvers.relax",
                 "data.wireless", "sim.wireless", "cli.wireless_sim",
-                "cli.gen_data", "cli.benchmark_solver"):
+                "cli.gen_data", "cli.benchmark_solver", "dryrun",
+                "utils.profiling", "utils.compile_cache"):
         assert f"distgcn_tpu_torch.{mod}" in result["modules"]
     assert result["banned"] == []
 
@@ -172,6 +173,18 @@ def test_wireless_cli_defaults_to_the_card(tmp_path, device_loop):
         wireless_sim.main([f"--test_datapath={tmp_path}", "--opt=7",
                            f"--device_loop={device_loop}",
                            f"--output={tmp_path}"])
+
+
+def test_dryrun_defaults_to_the_card():
+    """The flagship solve, the multi-card dry run and its command line
+    take the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from distgcn_tpu_torch import dryrun
+    for call in (dryrun.entry, lambda: dryrun.dryrun_multichip(1),
+                 lambda: dryrun.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_cpu_device_sets_full_f32_matmuls():
