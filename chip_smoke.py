@@ -178,7 +178,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    `batched_lgs_plain`), of the SpMM (bit-equal to `edge_spmm_plain` in
    the kernel's order on the CPU; `bsr_spmm_plain` within rtol 2e-5, atol
    1e-5) and of both neighbour-maxes (bit-equal to `bsr_nbr_max_plain`)
-   on the run's own tensors.
+   on the run's own tensors;
+22. the data-sharded closed loop, `make_closed_loop(..., mesh=make_mesh())`
+   in the same one-rank group at phase 4's width, graphs and generator
+   seed (B=128, N=256, load 0.9, the ERGDPG2 checkpoint): in gdpg and dqn
+   f32 with the greedy baseline, T=100, queueT and every metric bit-equal
+   to the unsharded loop; B1 launched 2 times a slot, every 25th call held
+   against `batched_lgs_plain`; the gdpg ms a slot (marginal of T=100 and
+   T=500), sharded and unsharded in turns, beside phase 4's.
 
 The launch counts of the JSON line come from the main paths: phase 4 for the
 LGS kernel, phases 7-8 for the large-graph kernels, phase 10 for the int32
@@ -189,7 +196,8 @@ the same way: phase 12's 40 solves, phase 13's `train_gdpg` epoch and phase
 mode), `eval_launches` phases 15 and 17, and `wireless_launches` the
 main paths of phases 19 (the two CLI sweeps, the sequential episode) and
 20 (the host engine's first call, the largest network's pair, the
-DGCN-LGS-Seq run); `dryrun_launches` phase 21's `dryrun_multichip(1)`. `model/` is only
+DGCN-LGS-Seq run); `dryrun_launches` phase 21's `dryrun_multichip(1)`;
+`sharded_loop_launches` phase 22's two sharded episodes. `model/` is only
 read: the trainers write into temporary copies. Runs of the sharded path across
 several cards (D > 1 over NCCL) need a multi-card machine; this script
 takes one card.
@@ -446,14 +454,56 @@ def phase_pipeline(dev, cfg, tree) -> None:
           flush=True)
 
 
-def phase_closed_loop(dev, cfg, tree) -> None:
-    rng = np.random.default_rng(2)
-    adjs, wtss = graphs(rng, B, N_MIN, N)
-    gb = GraphBatch.from_scipy(adjs, wtss, pad_to=N, device=dev)
+LOOP_SEED = 7                  # the closed loop's generator seed
+
+
+def loop_config() -> Config:
+    """The ERGDPG2 l20 c32 checkpoint's configuration in phases 3, 4 and
+    22."""
+    return Config(feature_size=1, hidden1=32, num_layer=20, diver_num=1,
+                  max_degree=1, predict="mwis", pad_to=N, batch_size=B)
+
+
+def loop_batch(dev, b=B) -> GraphBatch:
+    """The closed loop's graphs: the first `b` of seed 2's stream (a larger
+    batch starts with phase 4's 128), padded to N on `dev`."""
+    adjs, wtss = graphs(np.random.default_rng(2), b, N_MIN, N)
+    return GraphBatch.from_scipy(adjs, wtss, pad_to=N, device=dev)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def marginal_ms(work, lo: int, hi: int, dev):
+    """ms a unit of work, the marginal between work(lo) and work(hi) units:
+    the host clock after a synchronise and, in a process group, a barrier;
+    the largest over the group's ranks. Returns (ms, {n: seconds of
+    work(n)}, {n: work(n)})."""
+    secs, out = {}, {}
+    for n in (lo, hi):
+        sync(dev)
+        if dist.is_initialized():
+            dist.barrier()
+        t0 = time.perf_counter()
+        out[n] = work(n)
+        sync(dev)
+        secs[n] = time.perf_counter() - t0
+    ms = torch.tensor([(secs[hi] - secs[lo]) * 1e3 / (hi - lo)],
+                      dtype=torch.float64, device=dev)
+    if dist.is_initialized():
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+    return float(ms), secs, out
+
+
+def phase_closed_loop(dev, cfg, tree) -> dict:
+    """Phase 4; returns the ms a slot of each (mode, dtype)."""
+    gb = loop_batch(dev)
     model = make_model_from_config(cfg, "gcn2_dqn",
                                    params=params_from_jax(tree), device=dev)
     q0 = torch.zeros((B, N), device=dev)
-    avg_util = {}
+    avg_util, slot_ms = {}, {}
     for mode in ("gdpg", "dqn"):
         for dt in ("float32", "bfloat16"):
             cfg_d = cfg.replace(compute_dtype=dt)
@@ -462,23 +512,24 @@ def phase_closed_loop(dev, cfg, tree) -> None:
                     for t in (3, 100, 500)}
             runs[3](gb.adj, gb.mask, q0,
                     torch.Generator(device=dev).manual_seed(0))  # warm-up
-            secs = {}
-            for t in (100, 500):
-                gen = torch.Generator(device=dev).manual_seed(7)
-                torch.cuda.synchronize()
+
+            def work(t):
                 before = batched_lgs_kernel.launches
-                t0 = time.perf_counter()
-                qT, metrics = runs[t](gb.adj, gb.mask, q0, gen)
-                torch.cuda.synchronize()
-                secs[t] = time.perf_counter() - t0
+                out = runs[t](gb.adj, gb.mask, q0, torch.Generator(
+                    device=dev).manual_seed(LOOP_SEED))
                 check(batched_lgs_kernel.launches - before >= t,
                       f"{mode}/{dt}: fewer than {t} kernel launches")
+                return out
+
+            ms, secs, outs = marginal_ms(work, 100, 500, dev)
+            for qT, metrics in outs.values():
                 check(bool(torch.isfinite(qT).all())
                       and bool((qT >= 0).all()), f"{mode}/{dt}: queues")
                 check(bool((qT[~gb.mask] == 0).all()),
                       f"{mode}/{dt}: padding queues not 0")
             avg_util[mode, dt] = float(metrics["avg_utility"].mean())
-            slot_s = (secs[500] - secs[100]) / 400
+            slot_s = ms / 1e3
+            slot_ms[mode, dt] = ms
             print(f"phase 4: closed loop {mode:4s} {dt:8s}: T=100 "
                   f"{secs[100]:.4f} s, T=500 {secs[500]:.4f} s, per slot "
                   f"{slot_s * 1e3:.4f} ms, {B / slot_s:.1f} graphs/s, "
@@ -491,6 +542,7 @@ def phase_closed_loop(dev, cfg, tree) -> None:
     print(f"phase 4: peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB",
           flush=True)
+    return slot_ms
 
 
 def graph_ms(fn, iters, flush=None) -> float:
@@ -2678,6 +2730,104 @@ def phase_dryrun(dev) -> dict:
     return {"launches": counts, "held": held}
 
 
+# ---------------------------------------------------------------------------
+# the data-sharded closed loop (phase 22)
+# ---------------------------------------------------------------------------
+
+SHARDED_T = 100
+
+
+def loop_slot_ms(runs, adj, mask, queue0):
+    """ms a slot of a closed loop (``runs``: {T: run} at two episode
+    lengths) on LOOP_SEED's generator, by `marginal_ms`. Returns (ms,
+    {T: (queueT, metrics)})."""
+    dev = queue0.device
+
+    def work(t):
+        gen = torch.Generator(device=dev).manual_seed(LOOP_SEED)
+        return runs[t](adj, mask, queue0, gen)
+
+    ms, _, out = marginal_ms(work, *sorted(runs), dev)
+    return ms, out
+
+
+def episodes_equal(got, want) -> bool:
+    """Two (queueT, metrics) results bit for bit."""
+    return (torch.equal(got[0], want[0]) and got[1].keys() == want[1].keys()
+            and all(torch.equal(got[1][k], v) for k, v in want[1].items()))
+
+
+def phase_sharded_loop(dev, cfg, tree, phase4_ms) -> dict:
+    """Phase 22: `make_closed_loop(..., mesh=make_mesh())` at phase 4's
+    width in the one-rank group, bit-equal to the unsharded loop in gdpg
+    and dqn f32 with the greedy baseline; B1's launches on that path, a
+    sample of its calls against the plain version, and its ms a slot
+    beside the unsharded loop's."""
+    gb = loop_batch(dev)
+    model = make_model_from_config(cfg, "gcn2_dqn",
+                                   params=params_from_jax(tree), device=dev)
+    mesh = make_mesh()
+    check(mesh.shape == {"data": 1, "model": 1} and dist.is_initialized(),
+          f"mesh {mesh.shape} in the one-rank group")
+    q0 = torch.zeros((B, N), device=dev)
+
+    def loop(t, mode, sharded):
+        return make_closed_loop(model, cfg, t, load=0.9, feature_mode=mode,
+                                with_baseline=True,
+                                mesh=mesh if sharded else None)
+
+    def episode(mode, sharded):
+        return loop(SHARDED_T, mode, sharded)(
+            gb.adj, gb.mask, q0,
+            torch.Generator(device=dev).manual_seed(LOOP_SEED))
+
+    modes = ("gdpg", "dqn")
+    want = {mode: episode(mode, False) for mode in modes}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with lgs_calls([device_sim], every=25) as calls:
+        got = {mode: episode(mode, True) for mode in modes}
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["lgs"]
+    check(launches == 2 * SHARDED_T * len(modes),
+          f"the sharded loop launched B1 {launches} times")
+    check(all(n == 0 for k, n in counts.items() if k != "lgs"),
+          f"the sharded loop launched other kernels: {counts}")
+    for mode in modes:
+        check(episodes_equal(got[mode], want[mode]),
+              f"sharded {mode} episode differs from the unsharded one")
+        queues_ok(got[mode][0], gb.mask, f"sharded {mode}")
+    graphs_held = lgs_vs_plain(calls, "sharded loop")
+    runs = {s: {t: loop(t, "gdpg", s) for t in (100, 500)}
+            for s in (False, True)}
+    loop(3, "gdpg", True)(gb.adj, gb.mask, q0,
+                          torch.Generator(device=dev).manual_seed(0))
+    ms = {False: [], True: []}
+    for s in (False, True, True, False) * 2:
+        ms[s].append(loop_slot_ms(runs[s], gb.adj, gb.mask, q0)[0])
+    m = want["gdpg"][1]
+    print(f"phase 22: make_closed_loop(mesh=make_mesh()) gcn2_dqn ERGDPG2 "
+          f"l20 c32 f32, B={B} N={N} load 0.9, mesh {mesh.shape}, "
+          f"T={SHARDED_T} with the greedy baseline: queueT and metrics "
+          f"bit-equal to the unsharded loop in gdpg and dqn; B1 launches "
+          f"{launches} (2 a slot), {len(calls)} calls held against the "
+          f"plain version ({graphs_held} graphs); gdpg avg_queue_len "
+          f"{float(m['avg_queue_len'].mean()):.4f}, avg_utility_ratio "
+          f"{float(m['avg_utility_ratio'].mean()):.6f}", flush=True)
+    print(f"phase 22: gdpg f32 with the baseline, ms a slot (marginal of "
+          f"T=100 and T=500; twice in turns unsharded, sharded, sharded, "
+          f"unsharded): sharded median {np.median(ms[True]):.4f} ("
+          + " / ".join(f"{x:.4f}" for x in ms[True]) + "), unsharded "
+          f"median {np.median(ms[False]):.4f} ("
+          + " / ".join(f"{x:.4f}" for x in ms[False]) + f"); phase 4 (no "
+          f"baseline; before phase 21's profiler sessions) "
+          f"{phase4_ms['gdpg', 'float32']:.4f}", flush=True)
+    return {"launches": counts, "graphs_held": graphs_held,
+            "sharded_ms_per_slot": ms[True],
+            "unsharded_ms_per_slot": ms[False]}
+
+
 COUNTED = {"lgs": batched_lgs_kernel, "bsr_nbr_max": bsr_nbr_max_kernel,
            "bsr_nbr_max_i32": bsr_nbr_max_i32_kernel,
            "bsr_spmm": bsr_spmm_kernel, "cheb_fused": fused_cheb_layer_kernel}
@@ -2702,13 +2852,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     phase_build(smi)
-    cfg = Config(feature_size=1, hidden1=32, num_layer=20, diver_num=1,
-                 max_degree=1, predict="mwis", pad_to=N, batch_size=B)
+    cfg = loop_config()
     tree = load_params(CKPT)
     max_err = phase_kernel_vs_plain(dev)
     phase_pipeline(dev, cfg, tree)
     reset_launch_counts()
-    phase_closed_loop(dev, cfg, tree)
+    phase4_ms = phase_closed_loop(dev, cfg, tree)
     launches = batched_lgs_kernel.launches
     check(launches > 0, "the closed loop never launched the LGS kernel")
     timing = phase_timing(dev)
@@ -2803,8 +2952,13 @@ def main() -> int:
         dry = phase_dryrun(dev)
         print(f"phase 21: {time.perf_counter() - t0:.3f} s wall; {step}",
               flush=True)
+        t0 = time.perf_counter()
+        loop = phase_sharded_loop(dev, cfg, tree, phase4_ms)
+        print(f"phase 22: {time.perf_counter() - t0:.3f} s wall; {loop}",
+              flush=True)
     for k in kernels:
         k["dryrun_launches"] = dry["launches"][k["name"]]
+        k["sharded_loop_launches"] = loop["launches"][k["name"]]
     kernels[0]["kernels_enqueued"] = phase_enqueued(wrapper)
     print(json.dumps({"kernels": kernels}))
     print(smi)

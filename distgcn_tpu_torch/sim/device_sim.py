@@ -1,8 +1,9 @@
 """Device-resident closed-loop wireless scheduler and online trainer.
 
 Port of `distgcn_tpu/sim/device_sim.py` (`make_slot_step`,
-`make_closed_loop`, the multi-channel `make_closed_loop_mc` and
-`make_closed_loop_seq`, `make_online_training_loop`). The conflict graphs, GCN
+`make_closed_loop` with its data-sharded mode, the multi-channel
+`make_closed_loop_mc` and `make_closed_loop_seq`,
+`make_online_training_loop`). The conflict graphs, GCN
 parameters, supports, queues and the traffic RNG all live on the device; the
 T-slot episode is a Python loop that never synchronises with the host (the
 LGS kernel launches without a sync and per-slot metrics stay on the device
@@ -35,6 +36,8 @@ from distgcn_tpu_torch.agents import build_features
 from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.gcn import cast_model
 from distgcn_tpu_torch.ops.lgs import batched_lgs
+from distgcn_tpu_torch.parallel.distributed import gather_global
+from distgcn_tpu_torch.parallel.mesh import batch_sharding
 from distgcn_tpu_torch.pipeline import (_compute_dtype, gcn_weights,
                                         selected_utility)
 from distgcn_tpu_torch.rl.train import apply_updates, first_layer_l2
@@ -203,7 +206,7 @@ def make_closed_loop(model, flags: Config, timeslots: int,
                      load: float = 0.9, rate_lo: float = 0.0,
                      rate_hi: float = 100.0, wt_sel: str = "qr",
                      feature_mode: str = "gdpg", use_gcn: bool = True,
-                     with_baseline: bool = False):
+                     with_baseline: bool = False, mesh=None):
     """Closed-loop T-slot scheduling episode.
 
     Returns run(adj, mask, queue0, generator) ->
@@ -221,14 +224,33 @@ def make_closed_loop(model, flags: Config, timeslots: int,
     do not depend on the weights, so the scores are computed once per
     episode (XLA hoists the same computation out of the JAX scan); every
     other mode runs the GCN every slot.
+
+    mesh: an optional `parallel.mesh.Mesh`, which shards the graph batch
+    over its data axis (the JAX loop's ``P('data')``; the model and the
+    generator replicated). Every rank of the mesh passes the whole batch,
+    B a multiple of ``mesh.n_data``, on its own device, with a generator
+    that every rank seeds alike. Each slot draws the whole batch's
+    arrivals and rates, so a rank's rows see the unsharded episode's draws,
+    and the rank schedules only its rows (`batch_sharding`; the ranks of
+    the model axis repeat them), with no collective inside the T slots.
+    One all-gather over the data axis at the end, of the final queues and
+    the per-slot stats, gives every rank the whole batch's result. It is
+    the unsharded episode's bit for bit as long as each graph's GCN, B1
+    launch and sums over its own nodes come out alike at B/n_data graphs
+    and at B (a GEMM that sums in another order for fewer graphs would
+    break that).
     """
     traffic = _traffic(load, rate_lo, rate_hi)
+    rows = (lambda b: slice(None)) if mesh is None else batch_sharding(mesh)
+    gather = mesh is not None and mesh.n_data > 1
 
     @torch.no_grad()
     def run(adj, mask, queue0, generator: torch.Generator):
         dev = queue0.device
         _check_generator(generator, dev)
-        m = mask.to(queue0.dtype)
+        m_all = mask.to(queue0.dtype)
+        sl = rows(queue0.shape[0])
+        adj, mask, queue0, m = adj[sl], mask[sl], queue0[sl], m_all[sl]
         adjb = adj > 0
         supports, scores = None, None
         if use_gcn:
@@ -239,7 +261,8 @@ def make_closed_loop(model, flags: Config, timeslots: int,
                             dtype=torch.float32, device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals, rates = traffic(generator, m)
+            arrivals, rates = traffic(generator, m_all)
+            arrivals, rates = arrivals[sl], rates[sl]
             queue, sel, util, wts = _slot(scores, wt_sel, supports, adjb,
                                           mask, queue, arrivals, rates)
             stats[t, 0] = (queue * m).sum(dim=-1)
@@ -247,7 +270,9 @@ def make_closed_loop(model, flags: Config, timeslots: int,
             stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
             if with_baseline:
                 stats[t, 3] = batched_lgs(adjb, wts, mask)[1]
-        nreal = torch.clamp(m.sum(dim=-1), min=1.0)
+        if gather:
+            queue, stats = _gather_rows(queue, stats, mesh.data_group)
+        nreal = torch.clamp(m_all.sum(dim=-1), min=1.0)
         metrics = {
             "avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
             "avg_utility": stats[:, 1].mean(dim=0),
@@ -259,6 +284,21 @@ def make_closed_loop(model, flags: Config, timeslots: int,
         return queue, metrics
 
     return run
+
+
+def _gather_rows(queue, stats, group):
+    """Every data rank's rows of the final queues [b, N] and of the per-slot
+    stats [T, k, b], packed into one [b, N + T*k] slab and all-gathered
+    over `group`: ([B, N], [T, k, B]), the stats contiguous as the
+    unsharded episode holds them. The metrics are then reduced over the
+    whole batch's stats as the unsharded episode reduces them: a mean over
+    T may sum in another order for fewer columns or another layout."""
+    t, k, b = stats.shape
+    n = queue.shape[1]
+    slab = gather_global(torch.cat([queue, stats.reshape(t * k, b).T],
+                                   dim=1), group)
+    return (slab[:, :n].to(queue.dtype),
+            slab[:, n:].T.reshape(t, k, -1).to(stats.dtype).contiguous())
 
 
 def make_closed_loop_mc(model, flags: Config, timeslots: int, n_ch: int,

@@ -51,6 +51,7 @@ import torch.distributed as dist
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+from chip_smoke import marginal_ms, sync  # noqa: E402
 from distgcn_tpu_torch.large import (geometric_conflict_graph,  # noqa: E402
                                      params_to_list)
 from distgcn_tpu_torch.models.gcn import ChebGCN  # noqa: E402
@@ -93,11 +94,6 @@ def model_params(layers, width, dev):
     return params_to_list(tree, device=dev)
 
 
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def op_ms(fn, iters, dev) -> float:
     """Mean time of fn() over `iters` calls after one warm-up: CUDA events
     on a card, the host clock on the CPU; every rank enters together."""
@@ -120,22 +116,11 @@ def op_ms(fn, iters, dev) -> float:
 
 
 def solve_ms(fn, dev, k_lo=2, k_hi=6) -> float:
-    """Per-solve ms, the marginal of k_lo and k_hi solves, the largest
-    over the ranks."""
+    """Per-solve ms, the marginal of k_lo and k_hi solves after one
+    warm-up, the largest over the ranks."""
     fn()
-    t = {}
-    for k in (k_lo, k_hi):
-        sync(dev)
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(k):
-            fn()
-        sync(dev)
-        t[k] = time.perf_counter() - t0
-    ms = torch.tensor([(t[k_hi] - t[k_lo]) * 1e3 / (k_hi - k_lo)],
-                      dtype=torch.float64, device=dev)
-    dist.all_reduce(ms, op=dist.ReduceOp.MAX)
-    return float(ms)
+    return marginal_ms(lambda k: [fn() for _ in range(k)], k_lo, k_hi,
+                       dev)[0]
 
 
 def profile(args, dev, rank, world, bias_only, dqn) -> None:
