@@ -53,6 +53,7 @@ from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues,
 from distgcn_tpu_torch.sim.device_sim import (make_poisson_arrivals,
                                               slot_utilities)
 from distgcn_tpu_torch.utils.device import resolve_device
+from distgcn_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -251,8 +252,12 @@ def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
     def nbr_max(x):
         return bsr_neighbor_max(ind, x, graph.ind_row_ptr)[:n]
 
+    def any_left():
+        with span("distgcn.sync"):      # the host waits for the device
+            return bool((sel == -1).any())
+
     r = 0
-    while r < cap and bool((sel == -1).any()):
+    while r < cap and any_left():
         remain = sel == -1
         m = nbr_max(torch.where(remain, ranks, minus1))  # no-neighbour
         win = remain & (ranks > m)                       # sentinel << rank
@@ -377,33 +382,41 @@ def make_large_closed_loop(graph: LargeGraph, timeslots: int,
             return out[:, 0] * m
 
         if hoist_gcn:
-            act_h = scores(_features(graph, None, m, feature_size, predict))
+            with span("distgcn.gcn"):
+                act_h = scores(_features(graph, None, m, feature_size,
+                                         predict))
         stats = torch.empty((timeslots, 3), dtype=torch.float32, device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals = draw_arrivals(generator, queue.shape, queue.dtype) * m
-            rates = torch.randn(queue.shape, generator=generator,
-                                device=dev) * std_r + mean_r
-            rates = torch.clamp(torch.trunc(rates), rate_lo, rate_hi) * m
-            queue = queue + arrivals
-            wts = slot_utilities(queue[None], rates[None], wt_sel,
-                                 generator)[0] * m
-            if hoist_gcn:
-                act = act_h
-            elif predict == "mwis":
-                act = scores(_features(graph, wts, m, feature_size, predict)
-                             * (wts != 0).to(torch.float32)[:, None])
-            else:
-                act = scores(_features(graph, wts, m, feature_size,
-                                       predict))
-            gcn_wts = act * wts if predict == "mwis" else act
-            sel = lgs(gcn_wts)[0]
-            on = (sel == 1).to(queue.dtype)
-            queue = queue - torch.minimum(queue, rates * on)
-            stats[t, 0] = (queue * m).sum()
-            stats[t, 1] = torch.where(sel == 1, wts,
-                                      torch.zeros_like(wts)).sum()
-            stats[t, 2] = on.sum()
+            with span("distgcn.slot"):
+                arrivals = draw_arrivals(generator, queue.shape,
+                                         queue.dtype) * m
+                rates = torch.randn(queue.shape, generator=generator,
+                                    device=dev) * std_r + mean_r
+                rates = torch.clamp(torch.trunc(rates), rate_lo,
+                                    rate_hi) * m
+                queue = queue + arrivals
+                wts = slot_utilities(queue[None], rates[None], wt_sel,
+                                     generator)[0] * m
+                if hoist_gcn:
+                    act = act_h
+                else:
+                    with span("distgcn.gcn"):
+                        feats = _features(graph, wts, m, feature_size,
+                                          predict)
+                        if predict == "mwis":
+                            feats = feats * (wts != 0).to(
+                                torch.float32)[:, None]
+                        act = scores(feats)
+                gcn_wts = act * wts if predict == "mwis" else act
+                with span("distgcn.lgs"):
+                    sel = lgs(gcn_wts)[0]
+                on = (sel == 1).to(queue.dtype)
+                queue = queue - torch.minimum(queue, rates * on)
+                stats[t, 0] = (queue * m).sum()
+                stats[t, 1] = torch.where(sel == 1, wts,
+                                          torch.zeros_like(wts)).sum()
+                stats[t, 2] = on.sum()
         nreal = torch.clamp(m.sum(), min=1.0)
         metrics = {"avg_queue_len": stats[:, 0].mean() / nreal,
                    "avg_utility": stats[:, 1].mean(),

@@ -42,6 +42,7 @@ from distgcn_tpu_torch.pipeline import (_compute_dtype, gcn_weights,
                                         selected_utility)
 from distgcn_tpu_torch.rl.train import apply_updates, first_layer_l2
 from distgcn_tpu_torch.utils.config import Config
+from distgcn_tpu_torch.utils.profiling import span
 
 
 def _poisson_cdf(lam: float, tail: float = 1e-9) -> np.ndarray:
@@ -159,8 +160,9 @@ def _episode_scorer(model, flags: Config, feature_mode: str, adj, mask):
         adj, mask, flags.max_degree).to(dtype)
     scores = _gcn_scorer(cast_model(model, dtype), flags, feature_mode)
     if flags.predict == "mwis" and feature_mode == "gdpg":
-        act = scores(supports, torch.ones(mask.shape, device=mask.device),
-                     mask)
+        with span("distgcn.gcn"):
+            act = scores(supports, torch.ones(mask.shape, device=mask.device),
+                         mask)
         return supports, lambda supports, wts, mask: act * wts
     return supports, scores
 
@@ -169,8 +171,12 @@ def _slot(scores: Optional[Callable], wt_sel: str, supports, adjb, mask,
           queue, arrivals, rates):
     queue = queue + arrivals
     wts = slot_utilities(queue, rates, wt_sel) * mask
-    gcn_wts = wts if scores is None else scores(supports, wts, mask)
-    sel = batched_lgs(adjb, gcn_wts, mask)[0]
+    gcn_wts = wts
+    if scores is not None:
+        with span("distgcn.gcn"):
+            gcn_wts = scores(supports, wts, mask)
+    with span("distgcn.lgs"):
+        sel = batched_lgs(adjb, gcn_wts, mask)[0]
     on = (sel == 1).to(queue.dtype)
     departures = torch.minimum(queue, rates * on)
     queue = queue - departures
@@ -244,8 +250,7 @@ def make_closed_loop(model, flags: Config, timeslots: int,
     rows = (lambda b: slice(None)) if mesh is None else batch_sharding(mesh)
     gather = mesh is not None and mesh.n_data > 1
 
-    @torch.no_grad()
-    def run(adj, mask, queue0, generator: torch.Generator):
+    def episode(adj, mask, queue0, generator):
         dev = queue0.device
         _check_generator(generator, dev)
         m_all = mask.to(queue0.dtype)
@@ -261,15 +266,18 @@ def make_closed_loop(model, flags: Config, timeslots: int,
                             dtype=torch.float32, device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals, rates = traffic(generator, m_all)
-            arrivals, rates = arrivals[sl], rates[sl]
-            queue, sel, util, wts = _slot(scores, wt_sel, supports, adjb,
-                                          mask, queue, arrivals, rates)
-            stats[t, 0] = (queue * m).sum(dim=-1)
-            stats[t, 1] = util
-            stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
-            if with_baseline:
-                stats[t, 3] = batched_lgs(adjb, wts, mask)[1]
+            with span("distgcn.slot"):
+                arrivals, rates = traffic(generator, m_all)
+                arrivals, rates = arrivals[sl], rates[sl]
+                queue, sel, util, wts = _slot(scores, wt_sel, supports,
+                                              adjb, mask, queue, arrivals,
+                                              rates)
+                stats[t, 0] = (queue * m).sum(dim=-1)
+                stats[t, 1] = util
+                stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
+                if with_baseline:
+                    with span("distgcn.lgs"):
+                        stats[t, 3] = batched_lgs(adjb, wts, mask)[1]
         if gather:
             queue, stats = _gather_rows(queue, stats, mesh.data_group)
         nreal = torch.clamp(m_all.sum(dim=-1), min=1.0)
@@ -282,6 +290,11 @@ def make_closed_loop(model, flags: Config, timeslots: int,
             metrics["avg_utility_ratio"] = (
                 stats[:, 1] / torch.clamp(stats[:, 3], min=1e-9)).mean(dim=0)
         return queue, metrics
+
+    @torch.no_grad()
+    def run(adj, mask, queue0, generator: torch.Generator):
+        with span("distgcn.episode"):
+            return episode(adj, mask, queue0, generator)
 
     return run
 

@@ -8,7 +8,9 @@ Port of `distgcn_tpu/utils/profiling.py`:
   exponential moving average matching the reference's `emv`
   (test_utils.py:7-10). On a CUDA device it synchronises that device
   before each reading of the clock, so a step's time includes its device
-  work.
+  work;
+- `span(name)`: a span in the profiler's trace where a profiler records,
+  else nothing. The port's slot loops mark their layers with it.
 """
 
 from __future__ import annotations
@@ -39,6 +41,44 @@ def trace(logdir: Optional[str] = None):
         yield logdir
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records `name` as a span while a `torch.profiler`
+    session records, and the one shared no-op context otherwise (one
+    cheap check, so the slot loops carry their spans at no real cost).
+    `trace(logdir)` around a call writes the spans beside the kernels in
+    its Chrome trace, on the same clock.
+
+    A span is recorded as a host operator (`RecordFunctionFast`), not as
+    a `torch.profiler.record_function` user annotation: the profiler
+    mirrors a user annotation onto the device's timeline, over the first
+    to the last kernel launched inside it, and a reader of the device's
+    intervals that does not tell annotations from kernels would count the
+    card busy for a whole episode.
+
+    The port's spans, each nested in the one above it on the calling
+    thread:
+
+    - ``distgcn.episode``: a call of `sim.device_sim.make_closed_loop`'s
+      ``run`` (supports and scorer set-up, the slots, the metrics);
+    - ``distgcn.slot``: one slot of that loop or of
+      `large.make_large_closed_loop`'s (draws, utilities, scoring, LGS,
+      queue update, stats);
+    - ``distgcn.gcn``: the GCN's features and forward in a slot (and the
+      dense episode's hoisted forward);
+    - ``distgcn.lgs``: the LGS of a slot (B1, or `large.bsr_lgs`), and the
+      dense loop's baseline LGS;
+    - ``distgcn.sync``: in `large.bsr_lgs`, the host blocked on the
+      device's answer to "any node left?", once a round and once more at
+      the end.
+    """
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def emv(sample: float, prev: Optional[float], n: int = 3) -> float:
