@@ -71,7 +71,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    (`f32_values_ms` in the kernels line, with the bound of the function,
    the bound of the f32 value blocks, the plain version's time,
    `torch.sparse.mm` on a CSR copy of the weighted matrix and the edge
-   form of the 512-wide value matrix); beside the fused layer,
+   form of the 512-wide value matrix); beside the neighbour-max, its
+   two launches of a large LGS round (the rank and spread passes); beside
+   the fused layer,
    `exact_layer_ms`: the exact route's layer on the same inputs (SpMM
    kernel, two f32 matmuls, epilogue), timed the same way;
 10. the sharded giant-graph path at phase 6's width: a one-rank NCCL
@@ -264,7 +266,7 @@ from distgcn_tpu_torch.ops.spmm import (I32_SENT, NEG_HUGE, BsrMatrix,
                                         bsr_nbr_max_plain, bsr_neighbor_max,
                                         bsr_row_ptr, bsr_spmm, bsr_spmm_plain,
                                         bsr_spmm_rows, edge_spmm_plain,
-                                        nbr_max_rows)
+                                        lgs_round_passes, nbr_max_rows)
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
 from distgcn_tpu_torch.parallel import distributed
 from distgcn_tpu_torch.parallel.halo import distributed_lgs_ranks
@@ -1031,6 +1033,24 @@ def phase_large_timing(dev, L) -> dict:
            bound(words + meta + 2 * n * 4, f32_ops=nnz),
            "bitmap N=65,536 (library: scatter_reduce amax over the edge "
            "list, the x[src] gather counted)")
+    # the large LGS round's two launches of the same kernel on the same
+    # operand, each with its epilogue (the spread pass's replays find the
+    # first replay's winners decided); bound at each call to the capturing
+    # stream
+    key, win = x.clone(), torch.empty_like(x)
+    sel = torch.full((n,), -1, dtype=torch.int8, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+
+    def passes():
+        return lgs_round_passes(ind.blk_vals, rp, ind.blk_cols, key, win, sel,
+                                count, n, 256, True)
+
+    for i, name in enumerate(("rank", "spread")):
+        out[f"lgs_{name}_pass"] = {
+            "ms": graph_ms(lambda: passes()[i](), 100, flush)}
+        print(f"phase 9: bsr_nbr_max lgs {name} pass, L2 flushed: kernel "
+              f"{out[f'lgs_{name}_pass']['ms']:.4f} ms (the plain store "
+              f"{ms:.4f} ms)", flush=True)
     # SpMM on the exact route's operand
     y = torch.randn((n, f), generator=gen, device=dev) * g.r
     ms = graph_ms(lambda: bsr_spmm_rows(ind, y, rp), 50, flush)

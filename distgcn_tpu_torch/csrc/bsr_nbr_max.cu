@@ -53,9 +53,27 @@
 // int8 blocks keep the first design: one CTA per block-row, one thread
 // per row, the block's x segment staged in shared memory and each thread
 // scanning its row's 16-byte cell vectors.
+//
+// A round of the large LGS (large.bsr_lgs) is two launches of the bitmap
+// kernel whose final store is replaced by the round's element-wise logic
+// for the warp's own rows (the walk and the max are the same code):
+//   rank pass   (bsr_nbr_max_lgs_rank_launch), x = key, where key[j] is
+//     node j's rank while it is undecided and -1 once decided:
+//     win[i] = key[i] >= 0 && key[i] > m ? 1 : 0, and *left = 0. The
+//     key[i] >= 0 test keeps a decided row with no neighbour (m is the
+//     sentinel) from winning.
+//   spread pass (bsr_nbr_max_lgs_spread_launch), x = win: a winner gets
+//     sel = 1, an undecided row with a winning neighbour (m > 0) gets
+//     sel = 0, and both get key = -1; *left += the rows still undecided
+//     (one atomicAdd a warp, exact in any order).
+// The rank pass reads the neighbours' key and writes only win; the spread
+// pass reads the neighbours' win and writes only its own rows' key and
+// sel: neither reads what it writes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bitmap_walk.cuh"
 
@@ -131,14 +149,33 @@ using bitmap_walk::Walk;
 
 constexpr int kWarps = 8;   // warps per CTA of the bitmap kernel
 
-template <typename T>
+// what the bitmap kernel does with a row's maximum m
+enum Epilogue : int {
+  kStore = 0,    // y[i] = m
+  kRank = 1,     // the LGS round's rank pass (top of the file)
+  kSpread = 2,   // its spread pass
+};
+
+// the LGS round's state, read and written by the kRank and kSpread passes
+struct LgsRound {
+  float* key;      // [rows] rank while undecided, -1 once decided
+  int8_t* sel;     // [rows] -1 undecided, 1 selected, 0 excluded
+  int32_t* left;   // rows still undecided after the spread pass
+};
+
+template <typename T, int kEpi>
 __global__ void __launch_bounds__(kWarps * 32)
     nbr_max_bitmap_kernel(const uint32_t* __restrict__ words,
                           const int32_t* __restrict__ row_ptr,
                           const int32_t* __restrict__ blk_cols,
                           const T* __restrict__ x, T* __restrict__ y,
-                          int n_groups, int bs) {
+                          int n_groups, int bs, LgsRound lgs) {
   static_assert(sizeof(T) == 4, "f32 and int32 payloads");
+  static_assert(kEpi == kStore || std::is_same_v<T, float>,
+                "the LGS passes carry f32");
+  if constexpr (kEpi == kRank) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *lgs.left = 0;
+  }
   __shared__ uint32_t list_w[kWarps][kGroup * 32];
   __shared__ T list_x[kWarps][kGroup * 32];
   const int lane = threadIdx.x & 31;
@@ -200,7 +237,23 @@ __global__ void __launch_bounds__(kWarps * 32)
     have = have_next;
     have_next = have_nn;
   }
-  y[static_cast<size_t>(grp) * 32 + lane] = m;
+  const size_t i = static_cast<size_t>(grp) * 32 + lane;
+  if constexpr (kEpi == kStore) {
+    y[i] = m;
+  } else if constexpr (kEpi == kRank) {
+    const T k = x[i];                     // x is key
+    y[i] = k >= T(0) && k > m ? T(1) : T(0);
+  } else {
+    const bool won = x[i] > T(0);         // x is win
+    bool open = lgs.key[i] >= 0.0f;
+    if (won || (open && m > T(0))) {
+      lgs.sel[i] = won ? 1 : 0;
+      lgs.key[i] = -1.0f;
+      open = false;
+    }
+    const uint32_t live = __ballot_sync(0xffffffffu, open);
+    if (lane == 0 && live != 0u) atomicAdd(lgs.left, __popc(live));
+  }
 }
 
 template <typename T>
@@ -216,15 +269,39 @@ int launch_checked(const void* vals, int bitmap, const void* row_ptr,
   const int32_t* cols = static_cast<const int32_t*>(blk_cols);
   if (bitmap) {
     const int n_groups = n_block_rows * (bs / 32);
-    nbr_max_bitmap_kernel<T><<<(n_groups + kWarps - 1) / kWarps,
-                               kWarps * 32, 0, s>>>(
+    nbr_max_bitmap_kernel<T, kStore><<<(n_groups + kWarps - 1) / kWarps,
+                                       kWarps * 32, 0, s>>>(
         static_cast<const uint32_t*>(vals), rp, cols,
-        static_cast<const T*>(x), static_cast<T*>(y), n_groups, bs);
+        static_cast<const T*>(x), static_cast<T*>(y), n_groups, bs,
+        LgsRound{});
   } else {
     nbr_max_int8_kernel<T><<<n_block_rows, bs, bs * sizeof(T), s>>>(
         static_cast<const int8_t*>(vals), rp, cols, static_cast<const T*>(x),
         static_cast<T*>(y), bs);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kEpi>
+int launch_lgs_pass(const void* words, const void* row_ptr,
+                    const void* blk_cols, const void* x, void* y,
+                    LgsRound lgs, int n_block_rows, int bs, void* stream) {
+  if (bs < 32 || bs > 1024 || bs % 32 != 0 || n_block_rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_groups = n_block_rows * (bs / 32);
+  if (n_groups == 0) {
+    // no row: nothing is undecided
+    return static_cast<int>(
+        cudaMemsetAsync(lgs.left, 0, sizeof(int32_t), s));
+  }
+  nbr_max_bitmap_kernel<float, kEpi><<<(n_groups + kWarps - 1) / kWarps,
+                                       kWarps * 32, 0, s>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<const int32_t*>(row_ptr),
+      static_cast<const int32_t*>(blk_cols), static_cast<const float*>(x),
+      static_cast<float*>(y), n_groups, bs, lgs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,6 +328,32 @@ int bsr_nbr_max_i32_launch(const void* vals, int bitmap, const void* row_ptr,
                            int n_block_rows, int bs, void* stream) {
   return launch_checked<int32_t>(vals, bitmap, row_ptr, blk_cols, x, y,
                                  n_block_rows, bs, stream);
+}
+
+// One round of the large LGS over bitmap blocks is two launches on
+// `stream` (top of the file): the rank pass reads key, writes win and
+// zeroes *left; the spread pass reads win, updates key and sel (int8) and
+// counts the rows still undecided into *left. key, win and sel have
+// n_block_rows * bs rows and cover every block column; left is one int32.
+int bsr_nbr_max_lgs_rank_launch(const void* words, const void* row_ptr,
+                                const void* blk_cols, const void* key,
+                                void* win, void* left, int n_block_rows,
+                                int bs, void* stream) {
+  return launch_lgs_pass<kRank>(
+      words, row_ptr, blk_cols, key, win,
+      LgsRound{nullptr, nullptr, static_cast<int32_t*>(left)},
+      n_block_rows, bs, stream);
+}
+
+int bsr_nbr_max_lgs_spread_launch(const void* words, const void* row_ptr,
+                                  const void* blk_cols, const void* win,
+                                  void* key, void* sel, void* left,
+                                  int n_block_rows, int bs, void* stream) {
+  return launch_lgs_pass<kSpread>(
+      words, row_ptr, blk_cols, win, nullptr,
+      LgsRound{static_cast<float*>(key), static_cast<int8_t*>(sel),
+               static_cast<int32_t*>(left)},
+      n_block_rows, bs, stream);
 }
 
 const char* bsr_nbr_max_error_string(int code) {

@@ -46,10 +46,10 @@ from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.layers import identity, leaky_relu02
 from distgcn_tpu_torch.ops.cheb_fused import fused_forward, pad_params
 from distgcn_tpu_torch.ops.lgs import ell_lgs, lgs_ranks
-from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues,
-                                        bsr_neighbor_max, bsr_row_ptr,
-                                        bsr_spmm_rows, edge_spmm_rows,
-                                        edge_values_coo, ell_pack, ell_spmm)
+from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues, _pad_rows,
+                                        bsr_row_ptr, bsr_spmm_rows,
+                                        edge_spmm_rows, edge_values_coo,
+                                        ell_pack, ell_spmm, lgs_round_passes)
 from distgcn_tpu_torch.sim.device_sim import (make_poisson_arrivals,
                                               slot_utilities)
 from distgcn_tpu_torch.utils.device import resolve_device
@@ -233,10 +233,15 @@ def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
     """LGS over a large graph with block-sparse neighbour reductions.
 
     Same rank-based rounds as `ops.lgs` (heuristics.py:77-116, the
-    :106-111 tie-break folded into the ranks); each round's two
-    neighbour reductions (remaining-rank max, winner spread) stream the
-    graph's structure blocks (`ops.spmm.bsr_neighbor_max`). Ranks ride in
-    f32, exact below 2^24 nodes. Returns (sel [n_pad] int8, util, rounds).
+    :106-111 tie-break folded into the ranks). A round is two passes over
+    the graph's structure blocks, each a neighbour-max with the round's
+    logic after it (`ops.spmm.lgs_round_passes`: the remaining-rank max
+    and the winners, then the winner spread, the selections and the count
+    of nodes left), then one read of that count by the host. A node's key
+    is its rank while undecided and -1 once decided; ranks ride in f32,
+    exact below 2^24 nodes. When `mask` is the graph's own, the first
+    round starts without a read. Returns (sel [n_pad] int8, util,
+    rounds).
     """
     ind = graph.ind_bsr
     n = wts.shape[0]
@@ -244,28 +249,29 @@ def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
         # integers above 2^24 are not exact in f32: tied ranks would stall
         raise ValueError(f"n_pad={ind.n_rows} >= 2^24: LGS ranks lose "
                          "exactness in f32 — partition the solve")
+    rows = ind.n_rows
     ranks = lgs_ranks(wts).to(torch.float32)
-    minus1 = torch.full_like(ranks, -1.0)
-    sel = torch.where(mask, -1, 0).to(torch.int8)
+    key = _pad_rows(torch.where(mask, ranks, -1.0), rows, -1.0)
+    sel = _pad_rows(torch.where(mask, -1, 0).to(torch.int8), rows, 0)
+    win = torch.empty_like(key)
+    n_left = torch.empty((), dtype=torch.int32, device=wts.device)
+    rank_pass, spread_pass = lgs_round_passes(
+        ind.blk_vals, graph.ind_row_ptr, ind.blk_cols, key, win, sel, n_left,
+        rows, ind.block_size, graph.bitmap)
     cap = n if max_rounds is None else int(max_rounds)
-
-    def nbr_max(x):
-        return bsr_neighbor_max(ind, x, graph.ind_row_ptr)[:n]
-
-    def any_left():
+    if mask is graph.mask:
+        left = graph.n > 0
+    else:
         with span("distgcn.sync"):      # the host waits for the device
-            return bool((sel == -1).any())
-
+            left = bool(mask.any())
     r = 0
-    while r < cap and any_left():
-        remain = sel == -1
-        m = nbr_max(torch.where(remain, ranks, minus1))  # no-neighbour
-        win = remain & (ranks > m)                       # sentinel << rank
-        hit = nbr_max(win.to(torch.float32)) > 0.0
-        excl = remain & ~win & hit
-        sel = torch.where(win, torch.ones_like(sel), sel)
-        sel = torch.where(excl, torch.zeros_like(sel), sel)
+    while r < cap and left:
+        rank_pass()
+        spread_pass()
         r += 1
+        with span("distgcn.sync"):
+            left = n_left.item() > 0
+    sel = sel[:n]
     util = torch.where(sel == 1, wts, torch.zeros_like(wts)).sum()
     return sel, util, torch.tensor(r, dtype=torch.int32, device=wts.device)
 

@@ -18,6 +18,13 @@ one template:
 
 `ops.spmm.nbr_max_rows` and `ops.spmm.bsr_neighbor_max` launch them for
 CUDA tensors. Each wrapper's ``launches`` counts its kernel's launches.
+
+A round of the large LGS (`large.bsr_lgs`) over bitmap blocks is the f32
+kernel twice, each launch ending in the round's element-wise logic for
+its own rows instead of storing the maximum: `lgs_round_kernels` checks
+the round's arrays once and gives the two launches
+(`ops.spmm.lgs_round_passes` calls it; the plain passes are there). Each
+launch adds one to ``bsr_nbr_max_kernel.launches``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,13 @@ from distgcn_tpu_torch.ops.spmm_cuda import check_bsr
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+
+
+_LGS_ARGTYPES = {
+    "rank": [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p],
+    "spread": [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]}
 
 
 def _launch(entry: str, dtype: torch.dtype, caller: str,
@@ -82,6 +96,57 @@ def bsr_nbr_max_i32_kernel(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
                 n_rows, block_size, bitmap)
     bsr_nbr_max_i32_kernel.launches += 1
     return y
+
+
+def lgs_round_kernels(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
+                      blk_cols: torch.Tensor, key: torch.Tensor,
+                      win: torch.Tensor, sel: torch.Tensor,
+                      left: torch.Tensor, n_rows: int, block_size: int):
+    """A large LGS round's two launches of the f32 kernel over bitmap
+    blocks, checked once and bound to these arrays and to the stream
+    current now: returns (rank_pass, spread_pass), callables of no
+    argument that each launch one pass without synchronising and add one
+    to ``bsr_nbr_max_kernel.launches``.
+
+    key, win: f32 [n_rows]; sel: int8 [n_rows]; left: one int32.
+    rank_pass: with m the neighbour-max of key (a rank while undecided,
+    -1 once decided), win[i] = 1.0 where key[i] >= 0 and key[i] > m[i],
+    else 0.0; left = 0. spread_pass: a row with win set gets sel = 1, an
+    undecided row with a neighbour whose win is set gets sel = 0, both get
+    key = -1, and left gains the rows still undecided."""
+    caller = "lgs_round_kernels"
+    check_bsr(blk_vals, row_ptr, blk_cols, n_rows, block_size, True, (),
+              n_rows, caller)
+    for t, dtype in ((key, torch.float32), (win, torch.float32),
+                     (sel, torch.int8)):
+        if (t.shape != (n_rows,) or t.dtype != dtype
+                or t.device != blk_vals.device or not t.is_contiguous()):
+            raise ValueError(f"{caller}: key, win and sel must be "
+                             f"contiguous [{n_rows}] on the blocks' device, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if (left.numel() != 1 or left.dtype != torch.int32
+            or left.device != blk_vals.device):
+        raise ValueError(f"{caller}: left must be one int32 on the blocks' "
+                         "device")
+    device = key.device
+    operands = (blk_vals, row_ptr, blk_cols, key, win, sel, left)
+    blocks = tuple(t.data_ptr() for t in operands[:3])
+    grid = (n_rows // block_size, block_size, _build.stream_of(key))
+
+    def bound(kind, arrays):
+        fn = _build.bind("bsr_nbr_max", f"bsr_nbr_max_lgs_{kind}_launch",
+                         _LGS_ARGTYPES[kind])
+        args = (*blocks, *(t.data_ptr() for t in arrays), *grid)
+
+        def launch():
+            with torch.cuda.device(device):
+                fn(*args)
+            bsr_nbr_max_kernel.launches += 1
+        launch.operands = operands      # the memory its pointers address
+        return launch
+
+    return (bound("rank", (key, win, left)),
+            bound("spread", (win, key, sel, left)))
 
 
 bsr_nbr_max_kernel.launches = 0

@@ -22,6 +22,9 @@ Port of `distgcn_tpu/ops/spmm.py`:
   (y[i] = max over structural neighbours j of x[j]) run their plain
   PyTorch versions on CPU tensors and the hand-written CUDA kernels
   (`ops/spmm_cuda.py`, `ops/nbr_max_cuda.py`) on CUDA tensors.
+  `lgs_round_passes` gives a large LGS round's two neighbour-maxes with
+  the round's logic after each: one launch each over bitmap blocks on
+  the card, the plain composition otherwise.
   `spmm_rows` and `nbr_max_rows` are the same dispatch on raw block
   arrays (the sharded path's panels); the neighbour-max takes an f32 or
   an int32 payload (the JAX `_bsr_nbr_max_rows` and
@@ -467,6 +470,51 @@ def bsr_neighbor_max(s: BsrMatrix, x: torch.Tensor,
     x = _pad_rows(x, s.n_cols, nbr_max_sentinel(x.dtype))
     return nbr_max_rows(s.blk_vals, row_ptr, s.blk_cols, x, s.n_rows,
                         s.block_size, s.bitmap)
+
+
+def lgs_round_passes(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
+                     blk_cols: torch.Tensor, key: torch.Tensor,
+                     win: torch.Tensor, sel: torch.Tensor, left: torch.Tensor,
+                     n_rows: int, block_size: int, bitmap: bool = False):
+    """A large LGS round (`large.bsr_lgs`) as two passes over the
+    structure blocks, each a neighbour-max with the round's logic after
+    it, in place on the round's state: key (f32 [n_rows], a node's rank
+    while undecided, -1 once decided), win (f32 [n_rows]), sel (int8
+    [n_rows]: -1 undecided, 1 selected, 0 excluded) and left (one int32).
+    Returns (rank_pass, spread_pass), callables of no argument:
+
+    - rank_pass: with m the neighbour-max of key, win[i] = 1.0 where
+      key[i] >= 0 and key[i] > m[i], else 0.0 (a decided row without
+      neighbours, m the sentinel, does not win); left = 0;
+    - spread_pass: a row with win set gets sel = 1, an undecided row with
+      a neighbour whose win is set gets sel = 0, both get key = -1; left =
+      the rows still undecided.
+
+    Bitmap blocks on CUDA tensors: one launch of the neighbour-max kernel
+    each (`ops.nbr_max_cuda.lgs_round_kernels`, checked once here); else
+    the plain composition over `nbr_max_rows`."""
+    if key.is_cuda and bitmap:
+        from distgcn_tpu_torch.ops.nbr_max_cuda import lgs_round_kernels
+        return lgs_round_kernels(blk_vals, row_ptr, blk_cols, key, win, sel,
+                                 left, n_rows, block_size)
+
+    def nbr_max(x):
+        return nbr_max_rows(blk_vals, row_ptr, blk_cols, x, n_rows,
+                            block_size, bitmap)
+
+    def rank_pass():
+        win.copy_((key >= 0) & (key > nbr_max(key)))
+        left.zero_()
+
+    def spread_pass():
+        hit = nbr_max(win) > 0.0
+        won = win > 0.0
+        out = ~won & (key >= 0) & hit
+        sel.masked_fill_(won, 1).masked_fill_(out, 0)
+        key.masked_fill_(won | out, -1.0)
+        left.copy_((key >= 0).sum())
+
+    return rank_pass, spread_pass
 
 
 # ---------------------------------------------------------------------------

@@ -136,33 +136,52 @@ def test_build_large_graph_matches_jax(weighted):
         assert g.bsr is None and jg.bsr is None and g.edge is None
 
 
-@pytest.mark.parametrize("seed,max_rounds", [(0, None), (1, None), (2, 2)])
+@pytest.mark.parametrize("seed,max_rounds", [(0, None), (1, None), (2, 2),
+                                            (3, None)])
 def test_lgs_routes_bit_equal_to_jax_and_host(seed, max_rounds):
+    """`bsr_lgs` (the plain rank and spread passes, over bitmap and int8
+    blocks) and `ell_lgs` against the JAX package. 300 links padded to 384:
+    the padded tail has no neighbours, so a decided row's sentinel maximum
+    must not make it win. Seed 3 also isolates every 9th link and leaves
+    every 5th out of the mask (the first round then waits for a read)."""
     adj, wts, _ = T.geometric_conflict_graph(300, avg_degree=8.0,
                                              seed=10 + seed)
     if seed == 1:
         wts = np.round(wts * 4) / 4          # many ties: broken by node id
+    if seed == 3:
+        keep = np.arange(300) % 9 != 0
+        adj = sp.csr_matrix(adj.multiply(keep[:, None]).multiply(keep))
+        adj.eliminate_zeros()
     gb = T.build_large_graph(adj, block_size=128, use_bsr=True, device="cpu")
     g8 = _int8_copy(gb, adj)
     assert gb.bitmap and not g8.bitmap
     w = _wpad(wts, gb.n_pad)
     wt = torch.from_numpy(w)
-    outs = [T.bsr_lgs(g, wt, g.mask, max_rounds) for g in (g8, gb)]
-    outs.append(ell_lgs(gb.ell_cols, gb.ell_valid, wt, gb.mask, max_rounds))
+    mask = gb.mask
+    if seed == 3:
+        mask = mask & (torch.arange(gb.n_pad) % 5 != 0)
+    outs = [T.bsr_lgs(g, wt, g.mask if seed != 3 else mask, max_rounds)
+            for g in (g8, gb)]
+    outs.append(ell_lgs(gb.ell_cols, gb.ell_valid, wt, mask, max_rounds))
     jsel, jutil, jrounds = jax_ell_lgs(
         jnp.asarray(gb.ell_cols.numpy()), jnp.asarray(gb.ell_valid.numpy()),
-        jnp.asarray(w), jnp.asarray(gb.mask.numpy()), max_rounds)
+        jnp.asarray(w), jnp.asarray(mask.numpy()), max_rounds)
     jg = J.build_large_graph(adj, block_size=128, use_pallas=True,
                              interpret=True)
     psel, _, prounds = jax.jit(
         lambda a, w_, m: J.bsr_lgs(jg, a, w_, m, max_rounds))(
-            J.graph_arrays(jg), jnp.asarray(w), jg.mask)
+            J.graph_arrays(jg), jnp.asarray(w), jnp.asarray(mask.numpy()))
     for sel, util, rounds in outs:
         assert sel.dtype == torch.int8
         np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
         np.testing.assert_array_equal(sel.numpy(), np.asarray(psel))
         assert int(rounds) == int(jrounds) == int(prounds)
         np.testing.assert_allclose(float(util), float(jutil), rtol=1e-6)
+    assert not outs[1][0][~mask].any()
+    if seed == 3:
+        isolated = torch.from_numpy(np.flatnonzero(~keep))
+        assert (outs[1][0][isolated] == mask[isolated].to(torch.int8)).all()
+        return
     if max_rounds is None:
         ref_set, ref_util = local_greedy_search(adj, wts)
         sel = outs[1][0].numpy()

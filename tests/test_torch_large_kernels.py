@@ -537,3 +537,85 @@ def test_large_solve_on_card_goes_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert bsr_spmm_kernel.launches - s0 == 3
     assert abs(float(util) - float(xutil)) <= 0.01 * abs(float(xutil))
+
+
+_LGS_GRAPHS = {}
+
+
+def _lgs_graph(cuda, n, bs, isolated):
+    """A geometric graph of n links on blocks of `bs` (every 9th link
+    isolated if asked), built once per (n, bs, isolated)."""
+    key = (n, bs, isolated)
+    if key not in _LGS_GRAPHS:
+        adj, wts, _ = large.geometric_conflict_graph(
+            n, avg_degree=48.0 if n > 10000 else 12.0, seed=n, order="grid")
+        if isolated:
+            keep = np.arange(n) % 9 != 0
+            adj = sp.csr_matrix(adj.multiply(keep[:, None]).multiply(keep))
+            adj.eliminate_zeros()
+        g = large.build_large_graph(adj, block_size=bs, device=cuda)
+        assert g.bitmap and g.ind_bsr.block_size == bs
+        w = torch.zeros(g.n_pad)
+        w[:n] = torch.from_numpy(wts)
+        _LGS_GRAPHS[key] = (g, w.to(cuda))
+    return _LGS_GRAPHS[key]
+
+
+def _plain_lgs(g, wts, mask, max_rounds=None):
+    """The LGS rounds composed from `bsr_nbr_max_plain` and element-wise
+    ops: two neighbour-maxes a round and a host test of the nodes left."""
+    ind = g.ind_bsr
+    ranks = large.lgs_ranks(wts).to(torch.float32)
+    sel = torch.where(mask, -1, 0).to(torch.int8)
+    cap = wts.shape[0] if max_rounds is None else max_rounds
+
+    def nbr_max(x):
+        return spmm.bsr_nbr_max_plain(ind.blk_vals, g.ind_row_ptr,
+                                      ind.blk_cols, x, ind.n_rows,
+                                      ind.block_size, True)
+
+    r = 0
+    while r < cap and bool((sel == -1).any()):
+        remain = sel == -1
+        win = remain & (ranks > nbr_max(torch.where(remain, ranks, -1.0)))
+        hit = nbr_max(win.to(torch.float32)) > 0.0
+        sel = torch.where(win, torch.ones_like(sel), sel)
+        sel = torch.where(remain & ~win & hit, torch.zeros_like(sel), sel)
+        r += 1
+    return sel, torch.where(sel == 1, wts, torch.zeros_like(wts)).sum(), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "ties", "max_rounds", "isolated",
+                                  "masked", "zero_weights"])
+@pytest.mark.parametrize("bs", [256, 128])
+@pytest.mark.parametrize("n", [300, 5000, 65536])
+def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
+    """`large.bsr_lgs` (each round B2's rank and spread passes) against the
+    rounds composed from the plain neighbour-max and against `ell_lgs`:
+    sel, util and rounds bit-equal, two launches a round. 300 and 5,000
+    links leave padding rows without neighbours."""
+    g, w = _lgs_graph(cuda, n, bs, case == "isolated")
+    mask, max_rounds = g.mask, None
+    if case == "ties":
+        w = torch.round(w * 4) / 4
+    elif case == "max_rounds":
+        max_rounds = 2
+    elif case == "masked":
+        mask = g.mask & (torch.arange(g.n_pad, device=cuda) % 5 != 0)
+    elif case == "zero_weights":
+        w = torch.zeros_like(w)
+    n0 = bsr_nbr_max_kernel.launches
+    sel, util, rounds = large.bsr_lgs(g, w, mask, max_rounds)
+    torch.cuda.synchronize()
+    assert bsr_nbr_max_kernel.launches - n0 == 2 * int(rounds) > 0
+    psel, putil, prounds = _plain_lgs(g, w, mask, max_rounds)
+    assert sel.dtype == torch.int8 and torch.equal(sel, psel)
+    assert int(rounds) == prounds
+    assert torch.equal(util.view(torch.int32), putil.view(torch.int32))
+    esel, _, erounds = large.ell_lgs(g.ell_cols, g.ell_valid, w, mask,
+                                     max_rounds)
+    assert torch.equal(sel, esel) and int(erounds) == prounds
+    assert not sel[~mask].any()
+    if max_rounds is None:
+        assert not (sel[mask] == -1).any()

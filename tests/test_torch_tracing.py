@@ -1,6 +1,6 @@
 """The port's program spans (`utils.profiling.span`) in its two slot loops:
 none without a profiler, results bit-equal with one, spans nested as
-documented, and one ``distgcn.sync`` a `large.bsr_lgs` round plus one."""
+documented, and one ``distgcn.sync`` a `large.bsr_lgs` round."""
 
 import numpy as np
 import pytest
@@ -152,8 +152,7 @@ def test_dense_spans_nest_slot_gcn_lgs_in_the_episode():
     assert "distgcn.sync" not in names          # B1 syncs nothing
 
 
-def test_large_slot_spans_nest_and_count_one_sync_a_round_plus_one(
-        monkeypatch):
+def test_large_slot_spans_nest_and_count_one_sync_a_round(monkeypatch):
     rounds = []
     real = large.bsr_lgs
 
@@ -169,7 +168,7 @@ def test_large_slot_spans_nest_and_count_one_sync_a_round_plus_one(
         _, spans = _profiled(slot)
         names = [s[0] for s in spans]
         assert len(rounds) == 1 and rounds[0] >= 1
-        assert names.count("distgcn.sync") == rounds[0] + 1
+        assert names.count("distgcn.sync") == rounds[0]
         assert names.count("distgcn.slot") == 1
         assert names.count("distgcn.gcn") == names.count("distgcn.lgs") == 1
         slot_span = spans[names.index("distgcn.slot")]
