@@ -15,7 +15,12 @@ Port of `distgcn_tpu/agents_extra.py`.
   masked supports, the GCN, the per-head softmax, the guided weights and
   all Q x D guided LGS completions through `ops.lgs.batched_lgs_multi`
   (one kernel launch with ``share = D`` on a card). Host-side draws use the
-  JAX package's numpy seeds, so both packages search alike.
+  JAX package's numpy seeds, so both packages search alike. The searches
+  carry the program spans of `utils.profiling.span`: ``distgcn.episode``
+  (a search call), ``distgcn.slot`` (one lockstep step: pops, the device
+  call, absorb), ``distgcn.gcn`` (masking, state arrays, forward, head
+  softmax, guided weights), ``distgcn.lgs`` (the completions' launch and
+  the read-back) and ``distgcn.sync`` (each of the two reads to the host).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from distgcn_tpu_torch.core.graph import (GraphBatch, graph_fingerprint,
 from distgcn_tpu_torch.models.gcn import cast_model
 from distgcn_tpu_torch.ops.lgs import batched_lgs_multi
 from distgcn_tpu_torch.utils.config import Config
+from distgcn_tpu_torch.utils.profiling import span
 
 
 class LegacyDQNAgent(DQNAgent):
@@ -201,7 +207,14 @@ class _BsfSearch:
 
 
 class DiverAgent(MWISSolver):
-    """Diverse-head tree-search agent (re-spec of mwis_rollout_call)."""
+    """Diverse-head tree-search agent (re-spec of mwis_rollout_call).
+
+    ``DiverAgent.bsf_calls`` counts the search's device calls
+    (`_bsf_eval`) and ``DiverAgent.bsf_states`` the states they evaluated,
+    over every agent of the process."""
+
+    bsf_calls = 0
+    bsf_states = 0
 
     def __init__(self, flags: Config, memory_size: int = 5000, seed: int = 0,
                  device=None):
@@ -265,8 +278,11 @@ class DiverAgent(MWISSolver):
             adjs_dev, torch.from_numpy(np.asarray(gidx, np.int64)).to(dev),
             torch.from_numpy(np.asarray(wts_rows, np.float32)).to(dev),
             torch.from_numpy(np.asarray(masks, np.float32)).to(dev))
-        sel = sel.cpu().numpy()                               # [Q, D, Np]
-        probs = probs.cpu().numpy()                           # [Q, Np, D]
+        with span("distgcn.lgs"):
+            with span("distgcn.sync"):
+                sel = sel.cpu().numpy()                       # [Q, D, Np]
+            with span("distgcn.sync"):
+                probs = probs.cpu().numpy()                   # [Q, Np, D]
         return ([sel[i, :, : ns[i]] for i in range(len(ns))],
                 [probs[i, : ns[i]] for i in range(len(ns))])
 
@@ -280,22 +296,26 @@ class DiverAgent(MWISSolver):
         tie-breaks are computed on f32 values."""
         flags = self.flags
         d = flags.diver_num
-        bmask = mask > 0
-        madj = adjs[gidx] * (bmask[:, :, None] & bmask[:, None, :]).to(
-            adjs.dtype)
-        feats, sups = build_state_arrays(
-            madj, wts, bmask, flags.feature_size, flags.max_degree,
-            flags.predict, self.feature_mode)
-        net = self.model
-        if flags.compute_dtype == "bfloat16":
-            feats, sups = feats.bfloat16(), sups.bfloat16()
-            net = cast_model(net, torch.bfloat16)
-        out = net(feats, sups).float() * mask[..., None]     # [Q, Np, 2D]
         qn, npad = wts.shape
-        heads = out[..., : 2 * d].reshape(qn, npad, d, 2)
-        probs = torch.softmax(heads, dim=-1)[..., 1] * mask[..., None]
-        guided = probs.transpose(1, 2) * wts[:, None, :]      # [Q, D, Np]
-        sel = batched_lgs_multi(madj, guided.contiguous(), bmask)[0]
+        DiverAgent.bsf_calls += 1
+        DiverAgent.bsf_states += qn
+        with span("distgcn.gcn"):
+            bmask = mask > 0
+            madj = adjs[gidx] * (bmask[:, :, None] & bmask[:, None, :]).to(
+                adjs.dtype)
+            feats, sups = build_state_arrays(
+                madj, wts, bmask, flags.feature_size, flags.max_degree,
+                flags.predict, self.feature_mode)
+            net = self.model
+            if flags.compute_dtype == "bfloat16":
+                feats, sups = feats.bfloat16(), sups.bfloat16()
+                net = cast_model(net, torch.bfloat16)
+            out = net(feats, sups).float() * mask[..., None]  # [Q, Np, 2D]
+            heads = out[..., : 2 * d].reshape(qn, npad, d, 2)
+            probs = torch.softmax(heads, dim=-1)[..., 1] * mask[..., None]
+            guided = probs.transpose(1, 2) * wts[:, None, :]  # [Q, D, Np]
+        with span("distgcn.lgs"):
+            sel = batched_lgs_multi(madj, guided.contiguous(), bmask)[0]
         return sel, probs
 
     def solve_mwis_bsf(self, adj_0, wts_0, max_pops: int = 16,
@@ -313,30 +333,32 @@ class DiverAgent(MWISSolver):
         `backoff_prob`, two children: a DEEPEN child fixing the head's
         highest-scored selected node and a BACKOFF child excluding it.
         """
-        s = _BsfSearch(adj_0, wts_0, max_pops, batch_pops,
-                       min(self.flags.diver_num, self.flags.diver_out),
-                       self.flags.backoff_prob, self._rng)
-        n = s.wts.size
-        bucket = pad_bucket(n, self.flags.pad_to)
-        adjs_dev = self._resident_adjs([s.adj], bucket)
-        wfull = np.zeros(bucket, np.float32)
-        wfull[:n] = s.wts
-        deadline = (time.time() + time_limit) if time_limit else None
-        while not s.done:
-            if deadline and time.time() > deadline:
-                break
-            batch = s.pop_batch()
-            if not batch:
-                continue
-            q = len(batch)
-            masks = np.zeros((q, bucket), np.float32)
-            for i, (_, ri, _, _) in enumerate(batch):
-                masks[i, ri] = 1.0
-            sels, probs_l = self._eval_heads_resident(
-                adjs_dev, np.zeros(q, np.int64), masks,
-                masks * wfull[None, :], [n] * q)
-            s.absorb(batch, sels, probs_l)
-        return s.result()
+        with span("distgcn.episode"):
+            s = _BsfSearch(adj_0, wts_0, max_pops, batch_pops,
+                           min(self.flags.diver_num, self.flags.diver_out),
+                           self.flags.backoff_prob, self._rng)
+            n = s.wts.size
+            bucket = pad_bucket(n, self.flags.pad_to)
+            adjs_dev = self._resident_adjs([s.adj], bucket)
+            wfull = np.zeros(bucket, np.float32)
+            wfull[:n] = s.wts
+            deadline = (time.time() + time_limit) if time_limit else None
+            while not s.done:
+                if deadline and time.time() > deadline:
+                    break
+                with span("distgcn.slot"):
+                    batch = s.pop_batch()
+                    if not batch:
+                        continue
+                    q = len(batch)
+                    masks = np.zeros((q, bucket), np.float32)
+                    for i, (_, ri, _, _) in enumerate(batch):
+                        masks[i, ri] = 1.0
+                    sels, probs_l = self._eval_heads_resident(
+                        adjs_dev, np.zeros(q, np.int64), masks,
+                        masks * wfull[None, :], [n] * q)
+                    s.absorb(batch, sels, probs_l)
+            return s.result()
 
     def solve_mwis_bsf_many(self, insts, max_pops: int = 16,
                             time_limit: float = None,
@@ -349,6 +371,11 @@ class DiverAgent(MWISSolver):
         on the group size. The resident graph axis is padded to the
         constant `group`. insts: list of (adj, wts); returns a list of
         (set, util) in input order."""
+        with span("distgcn.episode"):
+            return self._bsf_lockstep(insts, max_pops, time_limit,
+                                      batch_pops, group)
+
+    def _bsf_lockstep(self, insts, max_pops, time_limit, batch_pops, group):
         noout = min(self.flags.diver_num, self.flags.diver_out)
         backoff = self.flags.backoff_prob
         deadline = (time.time() + time_limit) if time_limit else None
@@ -360,55 +387,57 @@ class DiverAgent(MWISSolver):
         adjs_dev = None                       # rebuilt on active-set change
         nactive = -1
         while todo or active:
-            joined = False
-            while todo and len(active) < group:
-                i = todo.pop(0)
-                active.append((i, _BsfSearch(
-                    insts[i][0], insts[i][1], max_pops, batch_pops,
-                    noout, backoff,
-                    np.random.default_rng((self._seed, i)))))
-                joined = True
-            if joined or adjs_dev is None or nactive != len(active):
-                pads = [sp.csr_matrix((1, 1), dtype=np.float32)
-                        ] * (group - len(active))
-                adjs_dev = self._resident_adjs(
-                    [s.adj for _, s in active] + pads, bucket)
-                nactive = len(active)
-                wrows = np.zeros((group, bucket), np.float32)
+            with span("distgcn.slot"):
+                joined = False
+                while todo and len(active) < group:
+                    i = todo.pop(0)
+                    active.append((i, _BsfSearch(
+                        insts[i][0], insts[i][1], max_pops, batch_pops,
+                        noout, backoff,
+                        np.random.default_rng((self._seed, i)))))
+                    joined = True
+                if joined or adjs_dev is None or nactive != len(active):
+                    pads = [sp.csr_matrix((1, 1), dtype=np.float32)
+                            ] * (group - len(active))
+                    adjs_dev = self._resident_adjs(
+                        [s.adj for _, s in active] + pads, bucket)
+                    nactive = len(active)
+                    wrows = np.zeros((group, bucket), np.float32)
+                    for gi, (_, s) in enumerate(active):
+                        wrows[gi, : s.wts.size] = s.wts
+                batches = []
+                gidx, masks, wl, ns = [], [], [], []
                 for gi, (_, s) in enumerate(active):
-                    wrows[gi, : s.wts.size] = s.wts
-            batches = []
-            gidx, masks, wl, ns = [], [], [], []
-            for gi, (_, s) in enumerate(active):
-                b = s.pop_batch()
-                batches.append(b)
-                for _, ri, _, _ in b:
-                    m = np.zeros(bucket, np.float32)
-                    m[ri] = 1.0
-                    gidx.append(gi)
-                    masks.append(m)
-                    wl.append(m * wrows[gi])
-                    ns.append(s.wts.size)
-            if masks:
-                sels, probs_l = self._eval_heads_resident(
-                    adjs_dev, np.asarray(gidx, np.int64), np.asarray(masks),
-                    np.asarray(wl), ns)
-                o = 0
-                for (_, s), b in zip(active, batches):
-                    s.absorb(b, sels[o: o + len(b)], probs_l[o: o + len(b)])
-                    o += len(b)
-            timed_out = deadline and time.time() > deadline
-            still = []
-            for idx, s in active:
-                if s.done or timed_out:
-                    results[idx] = s.result()
-                else:
-                    still.append((idx, s))
-            active = still
-            if timed_out:
+                    b = s.pop_batch()
+                    batches.append(b)
+                    for _, ri, _, _ in b:
+                        m = np.zeros(bucket, np.float32)
+                        m[ri] = 1.0
+                        gidx.append(gi)
+                        masks.append(m)
+                        wl.append(m * wrows[gi])
+                        ns.append(s.wts.size)
+                if masks:
+                    sels, probs_l = self._eval_heads_resident(
+                        adjs_dev, np.asarray(gidx, np.int64),
+                        np.asarray(masks), np.asarray(wl), ns)
+                    o = 0
+                    for (_, s), b in zip(active, batches):
+                        s.absorb(b, sels[o: o + len(b)],
+                                 probs_l[o: o + len(b)])
+                        o += len(b)
+                timed_out = deadline and time.time() > deadline
+                still = []
                 for idx, s in active:
-                    results[idx] = s.result()
-                break
+                    if s.done or timed_out:
+                        results[idx] = s.result()
+                    else:
+                        still.append((idx, s))
+                active = still
+                if timed_out:
+                    for idx, s in active:
+                        results[idx] = s.result()
+                    break
         return results
 
     def solve_mwis_rollout_wrap(self, adj_0, wts_0, train: bool = False,
