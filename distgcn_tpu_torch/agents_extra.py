@@ -10,17 +10,18 @@ Port of `distgcn_tpu/agents_extra.py`.
   Q-net over per-node degree features (:70-81).
 - `DiverAgent`: a `GCNDeepDiver` emits diver_num score heads; the
   best-solution-first tree search (`solve_mwis_bsf`, `_bsf_many`) pops
-  partial states from a host heap (`_BsfSearch`, the JAX package's code
-  line for line) and evaluates each pop batch on the device in one call:
-  masked supports, the GCN, the per-head softmax, the guided weights and
-  all Q x D guided LGS completions through `ops.lgs.batched_lgs_multi`
-  (one kernel launch with ``share = D`` on a card). Host-side draws use the
-  JAX package's numpy seeds, so both packages search alike. The searches
-  carry the program spans of `utils.profiling.span`: ``distgcn.episode``
-  (a search call), ``distgcn.slot`` (one lockstep step: pops, the device
-  call, absorb), ``distgcn.gcn`` (masking, state arrays, forward, head
-  softmax, guided weights), ``distgcn.lgs`` (the completions' launch and
-  the read-back) and ``distgcn.sync`` (each of the two reads to the host).
+  partial states from a host heap (`_BsfSearch`, the JAX package's search,
+  its per-head loop done in whole-array passes) and evaluates each pop
+  batch on the device in one call: masked supports, the GCN, the per-head
+  softmax, the guided weights and all Q x D guided LGS completions through
+  `ops.lgs.batched_lgs_multi` (one kernel launch with ``share = D`` on a
+  card). Host-side draws use the JAX package's numpy seeds, so both
+  packages search alike. The searches carry the program spans of
+  `utils.profiling.span`: ``distgcn.episode`` (a search call),
+  ``distgcn.slot`` (one lockstep step: pops, the device call, absorb),
+  ``distgcn.gcn`` (masking, state arrays, forward, head softmax, guided
+  weights), ``distgcn.lgs`` (the completions' launch and the read-back)
+  and ``distgcn.sync`` (each of the two reads to the host).
 """
 
 from __future__ import annotations
@@ -108,6 +109,25 @@ class MLPAgent(DQNAgent):
         return act_values, np.argmax(act_values, axis=0)
 
 
+def exact_sums(w) -> bool:
+    """Whether every sum of a subset of the weights `w` is the same float64
+    in every order of summation: each weight a float32 value, none -0.0,
+    and sum |w| < 2^(53 + e), e = floor(log2(min nonzero |w|)) - 23. Each
+    weight is then a whole multiple of 2^e, so every partial sum is one of
+    fewer than 2^53 of them, exactly."""
+    w = np.asarray(w, np.float64)
+    with np.errstate(over="ignore"):
+        if not np.array_equal(w, w.astype(np.float32)):
+            return False
+    if np.signbit(w[w == 0]).any():
+        return False
+    a = np.abs(w[w != 0])
+    if not a.size:
+        return True
+    e = int(np.frexp(a.min())[1]) - 24
+    return bool(a.sum() < np.ldexp(1.0, 53 + e))
+
+
 class _BsfSearch:
     """Per-graph state of the best-solution-first tree search, so that
     independent instances' searches can run in lockstep and share device
@@ -115,8 +135,8 @@ class _BsfSearch:
     nIS_vec in {-1 remain, 0 excluded, 1 fixed} ordered best-solution-first;
     deepen/backoff children per head with probability `backoff`
     (mwis_dqn_test.py:59-135 machinery; flags runtime_config.py:19-20).
-    The JAX package's code line for line: the same heap tuples and the same
-    draws in the same order."""
+    The JAX package's search: the same candidates, heap tuples and draws in
+    the same order."""
 
     def __init__(self, adj_0, wts_0, max_pops, batch_pops, noout, backoff,
                  rng):
@@ -133,6 +153,7 @@ class _BsfSearch:
         self.counter = 1
         self.best_set, self.best_util = set(), -np.inf
         self.pops = 0
+        self.exact = exact_sums(self.wts)
 
     @property
     def done(self) -> bool:
@@ -162,43 +183,72 @@ class _BsfSearch:
     def absorb(self, batch, sels, probs_l):
         """Fold the device evaluation of `batch`'s states back in: record
         head completions as candidates, push deepen/backoff children.
-        sels/probs index global node ids (rows of excluded nodes carry sel
-        0 / probs 0)."""
-        adj, wts = self.adj, self.wts
-        for (nis, rem_idx, fixed_idx, fixed_util), sel, probs in zip(
-                batch, sels, probs_l):
-            order = np.argsort(-probs.max(axis=0))[: self.noout]
-            for k in order:
-                chosen = np.nonzero(sel[k] == 1)[0]       # global ids
-                if chosen.size == 0:
-                    continue
-                comp = set(chosen.tolist())
-                util = fixed_util + float(wts[chosen].sum())
-                if util > self.best_util:
-                    self.best_util = util
-                    self.best_set = set(fixed_idx.tolist()) | comp
-                if self.rng.random() >= self.backoff:
-                    continue
-                # branch on the head's highest-scored selected node
-                v = int(chosen[np.argmax(probs[chosen, k])])
-                # deepen: fix v in, exclude its neighbors
-                child = nis.copy()
-                child[v] = 1
-                nbrs = adj.indices[adj.indptr[v]: adj.indptr[v + 1]]
-                child[nbrs[child[nbrs] == -1]] = 0
-                b = child.tobytes()
-                if b not in self.seen:
-                    self.seen.add(b)
-                    heapq.heappush(self.heap, (-util, self.counter, b))
-                    self.counter += 1
-                # backoff: exclude v
-                child2 = nis.copy()
-                child2[v] = 0
-                b2 = child2.tobytes()
-                if b2 not in self.seen:
-                    self.seen.add(b2)
-                    heapq.heappush(self.heap, (-util, self.counter, b2))
-                    self.counter += 1
+        sels [D, n] / probs [n, D] of each state index global node ids
+        (rows of excluded nodes carry sel 0 / probs 0).
+
+        The JAX package's per-head loop, computed by whole-array passes
+        over the batch's states and heads: the same candidates, draws and
+        pushes. Children are built only while the search will pop again:
+        once `pops` reaches `max_pops` the heap is never read. A head's
+        utility is one float64 product where every order of summation
+        gives the same sum (`exact_sums`), else numpy's sum of the chosen
+        weights, head by head, as the loop sums them."""
+        if not batch:
+            return
+        if not self.exact:
+            DiverAgent.bsf_fallback_states += len(batch)
+        sel = np.stack(sels) == 1                              # [q, D, n]
+        probs = np.stack(probs_l)                              # [q, n, D]
+        order = np.argsort(-probs.max(axis=1), axis=-1)[:, : self.noout]
+        nonempty = sel.any(axis=-1)[np.arange(len(batch))[:, None], order]
+        # the nonempty ordered heads, state by state in head order
+        flat = np.flatnonzero(nonempty)
+        if not flat.size:
+            return
+        st = flat // order.shape[1]
+        hd = order.ravel()[flat]
+        if self.exact:
+            sums = (sel.astype(np.float64) @ self.wts)[st, hd]
+        else:
+            sums = np.array([self.wts[sel[s, k]].sum()
+                             for s, k in zip(st.tolist(), hd.tolist())])
+        util = np.array([b[3] for b in batch])[st] + sums
+        top = int(np.argmax(util))                  # the first of the best
+        if util[top] > self.best_util:
+            self.best_util = float(util[top])
+            self.best_set = set(batch[st[top]][2].tolist()) | set(
+                np.flatnonzero(sel[st[top], hd[top]]).tolist())
+        hit = np.flatnonzero(self.rng.random(flat.size) < self.backoff)
+        if self.pops >= self.max_pops or not hit.size:
+            return
+        st, hd = st[hit], hd[hit]
+        # branch on each head's highest-scored selected node (the first)
+        v = np.argmax(np.where(sel[st, hd], probs[st, :, hd], -np.inf),
+                      axis=1)
+        backoff = np.stack([b[0] for b in batch])[st]        # [P, n] int8
+        ar = np.arange(st.size)
+        deepen = backoff.copy()
+        deepen[ar, v] = 1
+        # deepen: v's remaining neighbours (its CSR row) excluded
+        lo = self.adj.indptr[v]
+        cnt = self.adj.indptr[v + 1] - lo
+        r = np.repeat(ar, cnt)
+        c = self.adj.indices[np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+                             + np.arange(cnt.sum())]
+        free = deepen[r, c] == -1
+        deepen[r[free], c[free]] = 0
+        backoff[ar, v] = 0
+        blob = np.stack([deepen, backoff], axis=1).tobytes()
+        n = backoff.shape[1]
+        keys = util[hit].tolist()
+        pushed = self.counter
+        for i in range(2 * st.size):                # deepen, then backoff
+            b = blob[i * n: (i + 1) * n]
+            if b not in self.seen:
+                self.seen.add(b)
+                heapq.heappush(self.heap, (-keys[i // 2], self.counter, b))
+                self.counter += 1
+        DiverAgent.bsf_children += self.counter - pushed
 
     def result(self):
         if self.best_util == -np.inf:
@@ -211,10 +261,15 @@ class DiverAgent(MWISSolver):
 
     ``DiverAgent.bsf_calls`` counts the search's device calls
     (`_bsf_eval`) and ``DiverAgent.bsf_states`` the states they evaluated,
+    ``bsf_fallback_states`` those of them whose heads' utilities were
+    summed head by head (weights that fail `exact_sums`) and
+    ``bsf_children`` the children pushed,
     over every agent of the process."""
 
     bsf_calls = 0
     bsf_states = 0
+    bsf_fallback_states = 0
+    bsf_children = 0
 
     def __init__(self, flags: Config, memory_size: int = 5000, seed: int = 0,
                  device=None):

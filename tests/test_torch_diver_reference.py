@@ -1,9 +1,9 @@
 """The port's diver (`models.gcn.GCNDeepDiver`, `agents_extra.DiverAgent`)
 against the benchmark's plain reference (`bench_h100/reference/diver.py`)
 on the CPU: the forward on seeded random weights, one device call of the
-search (`_bsf_eval`), whole lockstep searches at two group sizes, the
-published checkpoint at its widths, and the search's program spans and
-counters.
+search (`_bsf_eval`), whole lockstep searches at two group sizes, two
+single searches in a row on one agent's generator, the published
+checkpoint at its widths, and the search's program spans and counters.
 
 Tolerances: the forward and the head probabilities are compared with
 rtol 1e-5. Both sides run the same float32 products in the same order,
@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from bench_h100.reference import checkpoint, dense
 from bench_h100.reference import diver as ref
+from distgcn_tpu_torch import agents_extra
 from distgcn_tpu_torch.agents_extra import DiverAgent
 from distgcn_tpu_torch.models.gcn import make_model_from_config
 from distgcn_tpu_torch.utils.config import Config
@@ -129,6 +130,62 @@ def test_bsf_many_matches_the_reference_search(group):
     assert all(u > 0 for _, u in got)
 
 
+def _reference_single(agent, layers, graph, rng, max_pops, batch_pops):
+    """The reference's search of one instance drawing from `rng`, as
+    `solve_mwis_bsf` draws from the agent's generator."""
+    f = agent.flags
+    a, w = graph
+    n = w.size
+    n_pad = max(f.pad_to, -(-n // f.pad_to) * f.pad_to)
+    adj = np.zeros((1, n_pad, n_pad), np.float32)
+    adj[0, :n, :n] = a
+    wrow = np.zeros(n_pad, np.float32)
+    wrow[:n] = w
+    s = ref.Search(a, w, max_pops, batch_pops,
+                   min(f.diver_num, f.diver_out), f.backoff_prob, rng)
+    while not s.done:
+        batch = s.pop()
+        if not batch:
+            continue
+        masks = np.zeros((len(batch), n_pad), np.float32)
+        for i, (labels, _, _) in enumerate(batch):
+            masks[i, :n] = labels == -1
+        mk = torch.from_numpy(masks)
+        sel, probs = ref.evaluate(
+            layers, torch.from_numpy(adj),
+            torch.zeros(len(batch), dtype=torch.int64), mk,
+            mk * torch.from_numpy(wrow), f.feature_size)
+        s.absorb(batch, sel.numpy()[:, :, :n], probs.numpy()[:, :n])
+    return s.result()
+
+
+@pytest.mark.parametrize("entry, group", [("single", None), ("many", 1),
+                                          ("many", 3)])
+def test_whole_searches_match_the_reference(entry, group):
+    """The array `absorb` through whole searches: two single searches in a
+    row on one agent (its shared generator, left as the reference leaves
+    it) and lockstep searches, 12 pops taken 4 at a time."""
+    agent = _agent(SMALL, seed=5)
+    layers = _layers(agent.model)
+    graphs = _graphs(12, 4, 12, 30)
+    fallback = DiverAgent.bsf_fallback_states
+    children = DiverAgent.bsf_children
+    if entry == "single":
+        for a, w in graphs[:2]:
+            rng = np.random.default_rng()
+            rng.bit_generator.state = agent._rng.bit_generator.state
+            got = agent.solve_mwis_bsf(sp.csr_matrix(a), w, max_pops=12,
+                                       batch_pops=4)
+            assert got == _reference_single(agent, layers, (a, w), rng, 12,
+                                            4)
+            assert agent._rng.bit_generator.state == rng.bit_generator.state
+    else:
+        got = _program_search(agent, graphs, 12, 4, group)
+        assert got == _reference_search(agent, layers, graphs, 12, 4, group)
+    assert DiverAgent.bsf_fallback_states == fallback    # float32 weights
+    assert DiverAgent.bsf_children > children
+
+
 def test_published_checkpoint_matches_the_reference():
     agent = _agent(PUBLISHED, seed=11)
     assert agent.load(CKPT)
@@ -183,19 +240,34 @@ def _counted(agent):
 
 
 @pytest.mark.parametrize("entry", ["many", "single"])
-def test_spans_nest_and_counters_count(entry):
+def test_spans_nest_and_counters_count(entry, monkeypatch):
     agent = _agent(SMALL)
     graphs = _graphs(9, 4, 12, 30)
     qs = _counted(agent)
-    before = (DiverAgent.bsf_calls, DiverAgent.bsf_states)
+    pushes = []
+    real_push = agents_extra.heapq.heappush
+
+    def push(heap, item):
+        pushes.append(item)
+        real_push(heap, item)
+    monkeypatch.setattr(agents_extra.heapq, "heappush", push)
+    before = (DiverAgent.bsf_calls, DiverAgent.bsf_states,
+              DiverAgent.bsf_fallback_states, DiverAgent.bsf_children)
     if entry == "many":
+        # float32 weights: every state through the array passes
         _, spans = _spans(lambda: _program_search(agent, graphs, 8, 4, 2))
+        fallback = 0
     else:
+        # float64 weights: every state head by head
         a, w = graphs[0]
+        w = np.random.default_rng(9).random(w.size)
         _, spans = _spans(lambda: agent.solve_mwis_bsf(
             sp.csr_matrix(a), w, max_pops=8, batch_pops=4))
+        fallback = sum(qs)
     assert DiverAgent.bsf_calls - before[0] == len(qs) > 0
     assert DiverAgent.bsf_states - before[1] == sum(qs)
+    assert DiverAgent.bsf_fallback_states - before[2] == fallback
+    assert DiverAgent.bsf_children - before[3] == len(pushes) > 0
     names = [s[0] for s in spans]
     assert names.count("distgcn.episode") == 1
     episode = spans[names.index("distgcn.episode")]

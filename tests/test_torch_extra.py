@@ -214,6 +214,37 @@ def test_bsf_many_matches_jax_and_single_searches(rng):
     assert [s for s, _ in again] == [s for s, _ in got]
 
 
+@pytest.mark.parametrize("entry", ["single-1", "single-4", "many"])
+def test_bsf_matches_jax_on_float32_weights(rng, entry):
+    """Float32-valued weights, as the benchmark's set has them: every head's
+    utility is one product (`exact_sums`), none summed head by head, and
+    the sets and utilities equal the JAX agent's exactly."""
+    jag, tag = _diver_pair(backoff_prob=0.7, diver_out=3, seed=4)
+    insts = []
+    for _ in range(4):
+        n = int(rng.integers(20, 61))
+        insts.append((random_graph(rng, n, 0.12),
+                      rng.random(n).astype(np.float32).astype(np.float64)))
+    fallback = textra.DiverAgent.bsf_fallback_states
+    children = textra.DiverAgent.bsf_children
+    if entry == "many":
+        want = jag.solve_mwis_bsf_many(insts, max_pops=8, batch_pops=4,
+                                       group=3)
+        got = tag.solve_mwis_bsf_many(insts, max_pops=8, batch_pops=4,
+                                      group=3)
+    else:
+        pops = int(entry.split("-")[1])
+        want = [jag.solve_mwis_bsf(a, w, max_pops=12, batch_pops=pops)
+                for a, w in insts]
+        got = [tag.solve_mwis_bsf(a, w, max_pops=12, batch_pops=pops)
+               for a, w in insts]
+    for (a, _), (ts, tu) in zip(insts, got):
+        check_is(a, ts)
+    assert got == want
+    assert textra.DiverAgent.bsf_fallback_states == fallback
+    assert textra.DiverAgent.bsf_children > children
+
+
 def test_bsf_routes_rollout_entry(rng, monkeypatch):
     """DGCN-RS / CGCN-RS-Seq route through the tree search; the
     DISTGCN_SLOT_POPS knob sets its pops in both packages."""
