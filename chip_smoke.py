@@ -717,7 +717,7 @@ def rel_mean(got, want) -> float:
 
 def phase_large_kernels(dev, L) -> dict:
     """Each large-graph kernel against its plain version at the main
-    path's shapes; returns the largest |kernel - plain| per kernel."""
+    path's shapes; returns the largest |kernel - reference| per kernel."""
     g, ind = L.g, L.g.ind_bsr
     gen = torch.Generator(device=dev).manual_seed(11)
     errs = {}
@@ -753,42 +753,43 @@ def phase_large_kernels(dev, L) -> dict:
               "two launches bit-equal", flush=True)
     errs["bsr_nbr_max"] = worst
     # SpMM: the exact route's operand r * y at F=128 on the structure
-    # stream, and a weighted copy through its edge form: the f32 value
-    # matrix's (bs 512) and the LargeGraph route's (Anorm's values on the
-    # 256-wide structure blocks), each against the plain version over the
-    # value blocks and the plain version over its edge form
+    # stream, and a weighted copy through the LargeGraph route (Anorm's
+    # values as the edge form on the 256-wide structure blocks), each
+    # against its plain version and the weighted one also against
+    # torch.sparse.mm on a CSR copy of the same normalised matrix
     y = torch.randn((g.n_pad, LARGE_WIDTH), generator=gen, device=dev) * g.r
     rng = np.random.default_rng(12)
     wadj = sp.triu(L.adj, 1).tocsr()
     wadj.data = (rng.random(wadj.nnz) + 0.5).astype(np.float32)
     L.wadj = (wadj + wadj.T).tocsr()
     gw = build_large_graph(L.wadj, block_size=512, device=dev)
-    wb, gi = gw.bsr, gw.ind_bsr
-    check(not gw.separable and wb is not None
-          and wb.blk_vals.dtype == torch.float32 and gw.edge is not None
+    gi = gw.ind_bsr
+    check(not gw.separable and gw.edge is not None and gw.ell_cols is None
           and gw.edge.words is gi.blk_vals and gi.block_size == 256,
-          "weighted value blocks and edge form")
+          "weighted edge form on the structure blocks")
     L.gw = gw
+    wa = sp.csr_matrix(normalize_adj(L.wadj), dtype=np.float32)
+    wa.resize(g.n_pad, g.n_pad)
+    wa.sort_indices()
+    L.wcsr = torch.sparse_csr_tensor(
+        torch.from_numpy(wa.indptr.astype(np.int64)),
+        torch.from_numpy(wa.indices.astype(np.int64)),
+        torch.from_numpy(wa.data), size=(g.n_pad, g.n_pad),
+        check_invariants=True).to(dev)
     anorm = _make_spmm(gw)
-    plain_w = bsr_spmm_plain(wb.blk_vals, gw.row_ptr, wb.blk_cols, y,
-                             wb.n_rows, 512)
-
-    def edge_plain(e, rp, cols, bs):
-        return edge_spmm_plain(e.words, rp, cols, e.vals, e.off, y, g.n_pad,
-                               bs)
-
     cases = (
         ("bitmap", ind,
-         [bsr_spmm_plain(ind.blk_vals, g.ind_row_ptr, ind.blk_cols, y,
-                         ind.n_rows, 256, True)],
+         [("plain version over the blocks", bsr_spmm_plain(
+             ind.blk_vals, g.ind_row_ptr, ind.blk_cols, y, ind.n_rows, 256,
+             True))],
          (("bsr_spmm_rows", lambda: bsr_spmm_rows(ind, y, g.ind_row_ptr)),
           ("bsr_spmm", lambda: bsr_spmm(ind, y)))),
-        ("f32 edge form", wb,
-         [plain_w, edge_plain(wb.edge, gw.row_ptr, wb.blk_cols, 512)],
-         (("bsr_spmm_rows", lambda: bsr_spmm_rows(wb, y, gw.row_ptr)),
-          ("bsr_spmm", lambda: bsr_spmm(wb, y)))),
         ("f32 edge form on the structure", gi,
-         [plain_w, edge_plain(gw.edge, gw.ind_row_ptr, gi.blk_cols, 256)],
+         [("plain version over the edge form", edge_spmm_plain(
+             gw.edge.words, gw.ind_row_ptr, gi.blk_cols, gw.edge.vals,
+             gw.edge.off, y, g.n_pad, 256)),
+          ("library call (torch.sparse.mm on the CSR)",
+           torch.sparse.mm(L.wcsr, y))],
          (("the LargeGraph route", lambda: anorm(y)),
           ("the LargeGraph route", lambda: anorm(y)))))
     worst = 0.0
@@ -798,16 +799,15 @@ def phase_large_kernels(dev, L) -> dict:
             got = fn()
             torch.cuda.synchronize()
             outs.append(got)
-            for plain, want in zip(("blocks", "edge form"), wants):
+            for plain, want in wants:
                 err = float((got - want).abs().max())
                 worst = max(worst, err)
                 check(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
-                      f"SpMM {kind} via {route}: max abs diff {err} from the "
-                      f"plain version over the {plain}")
+                      f"SpMM {kind} via {route}: max abs diff {err} from "
+                      f"the {plain}")
                 print(f"phase 6: bsr_spmm {kind} ({b.num_blocks} blocks of "
                       f"{b.block_size}) via {route}: max abs diff {err:.3g} "
-                      f"from the plain version over the {plain} (rtol 2e-5, "
-                      "atol 1e-5)", flush=True)
+                      f"from the {plain} (rtol 2e-5, atol 1e-5)", flush=True)
         check(torch.equal(*outs), f"SpMM {kind}: two launches differ")
         print(f"phase 6: bsr_spmm {kind}: the two launches bit-equal",
               flush=True)
@@ -894,7 +894,8 @@ def phase_large_solve(dev, L) -> None:
     torch.cuda.synchronize()
     check(bsr_nbr_max_kernel.launches - n1 == 2 * int(rounds),
           "bsr_lgs did not launch the neighbour-max twice per round")
-    esel, _, erounds = ell_lgs(g.ell_cols, g.ell_valid, gcn_wts, g.mask)
+    ge = build_large_graph(L.adj, block_size=512, use_bsr=False, device=dev)
+    esel, _, erounds = ell_lgs(ge.ell_cols, ge.ell_valid, gcn_wts, g.mask)
     check(torch.equal(bsel, esel) and int(rounds) == int(erounds),
           "bsr_lgs differs from the plain ell_lgs")
     check(torch.equal(bsel, sel_f), "bsr_lgs differs from the fused solve")
@@ -923,14 +924,14 @@ def phase_large_solve(dev, L) -> None:
 
 def plain_weighted_solve(gw, plist, w):
     """The weighted exact dqn solve with every layer's SpMM from
-    `bsr_spmm_plain` over the value blocks: (sel, util)."""
-    wb = gw.bsr
+    `edge_spmm_plain` over the graph's edge form: (sel, util)."""
+    e, ind = gw.edge, gw.ind_bsr
     m = gw.mask.to(torch.float32)
     h = (w / ((w.abs() * m).max() + 1e-9) * m)[:, None]
     for li, layer in enumerate(plist):
         y = h @ layer["w_1"]
-        y = y - bsr_spmm_plain(wb.blk_vals, gw.row_ptr, wb.blk_cols, y,
-                               wb.n_rows, wb.block_size)
+        y = y - edge_spmm_plain(e.words, gw.ind_row_ptr, ind.blk_cols,
+                                e.vals, e.off, y, ind.n_rows, ind.block_size)
         out = h @ layer["w_0"] + y
         if "bias" in layer:
             out = out + layer["bias"]
@@ -961,7 +962,7 @@ def phase_weighted_solve(L) -> None:
     print(f"phase 7: weighted make_large_solve dqn {LARGE_LAYERS}x"
           f"{LARGE_WIDTH} (edge form on {gw.ind_bsr.num_blocks} blocks of "
           f"256, {gw.edge.vals.numel()} values): schedule independent and "
-          f"maximal; utility {util:.6f}, with bsr_spmm_plain layers "
+          f"maximal; utility {util:.6f}, with edge_spmm_plain layers "
           f"{putil:.6f} (rel diff {rel:.4%}), "
           f"{int((sel != psel).sum())} selections differ; SpMM launches "
           f"per solve {launches}; per solve (marginal of 2 and 6 solves) "
@@ -1073,51 +1074,32 @@ def phase_large_timing(dev, L) -> dict:
           f"{nnz * f * 4}), kernel {ms:.4f} ms", flush=True)
     # phase 6's weighted copy through the LargeGraph route (the edge form on
     # the 256-wide structure blocks): its function's bound (words, values,
-    # run offsets, block ids, x and y) beside the bound of the f32 value
-    # blocks the parent's kernel read, and torch.sparse.mm on a CSR copy of
-    # the same (normalised, weighted) matrix
+    # run offsets, block ids, x and y), and torch.sparse.mm on phase 6's
+    # CSR copy of the same (normalised, weighted) matrix
     gw, ge, gi = L.gw, L.gw.edge, L.gw.ind_bsr
     anorm = _make_spmm(gw)
     vms = graph_ms(lambda: anorm(y), 50, flush)
-    v512_ms = graph_ms(lambda: bsr_spmm_rows(gw.bsr, y, gw.row_ptr), 50,
-                       flush)
     vplain_ms = event_ms(lambda: edge_spmm_plain(
         ge.words, gw.ind_row_ptr, gi.blk_cols, ge.vals, ge.off, y, n, 256),
         5, flush)
     ebytes = (ge.words.numel() + ge.vals.numel() + ge.off.numel()
               + gw.ind_row_ptr.numel() + gi.blk_cols.numel()) * 4
     vbnd = bound(ebytes + 2 * n * f * 4, f32_ops=2 * nnz * f)
-    blocks = gw.bsr.blk_vals.numel() * 4
-    bbnd = bound(blocks + (gw.row_ptr.numel() + gw.bsr.blk_cols.numel()) * 4
-                 + 2 * n * f * 4, f32_ops=2 * nnz * f)
-    wa = sp.csr_matrix(normalize_adj(L.wadj), dtype=np.float32)
-    wa.resize(n, n)
-    wa.sort_indices()
-    wcsr = torch.sparse_csr_tensor(
-        torch.from_numpy(wa.indptr.astype(np.int64)),
-        torch.from_numpy(wa.indices.astype(np.int64)),
-        torch.from_numpy(wa.data), size=(n, n),
-        check_invariants=True).to(dev)
-    lib = torch.sparse.mm(wcsr, y)
+    lib = torch.sparse.mm(L.wcsr, y)
     check(torch.allclose(anorm(y), lib, rtol=2e-5, atol=1e-5),
           "the edge-form SpMM differs from torch.sparse.mm")
-    wlib_ms = event_ms(lambda: torch.sparse.mm(wcsr, y), 50, flush)
+    wlib_ms = event_ms(lambda: torch.sparse.mm(L.wcsr, y), 50, flush)
     out["bsr_spmm"].update(f32_values_ms=vms,
                            f32_values_bound_ms=vbnd["bound_ms"],
-                           f32_values_blocks_bound_ms=bbnd["bound_ms"],
                            f32_values_plain_ms=vplain_ms,
-                           f32_values_library_ms=wlib_ms,
-                           f32_values_bs512_ms=v512_ms)
+                           f32_values_library_ms=wlib_ms)
     print(f"phase 9: bsr_spmm f32 edge form ({gi.num_blocks} blocks of 256, "
           f"{ge.vals.numel()} values) F=128, L2 flushed: kernel {vms:.4f} ms "
           f"(the LargeGraph route), plain {vplain_ms:.4f} ms, library "
           f"{wlib_ms:.4f} ms (torch.sparse.mm on the weighted CSR, eager), "
           f"bound {vbnd['bound_ms'] * 1e3:.3f} us ({vbnd['bound_by']}: "
           f"{ebytes} bytes of edge form), kernel at "
-          f"{vbnd['bound_ms'] / vms:.2%} of the bound; the f32 value "
-          f"blocks' bound {bbnd['bound_ms'] * 1e3:.3f} us ({blocks} bytes); "
-          f"the edge form of the 512-wide value matrix "
-          f"({gw.bsr.num_blocks} blocks) {v512_ms:.4f} ms", flush=True)
+          f"{vbnd['bound_ms'] / vms:.2%} of the bound", flush=True)
     # fused hidden layer
     h = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
     r = g.r.reshape(-1).contiguous()

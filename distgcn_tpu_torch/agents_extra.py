@@ -9,11 +9,13 @@ Port of `distgcn_tpu/agents_extra.py`.
 - `MLPAgent`: the topology-blind ablation of `mwis_mlp_call.py`, an `MLP2`
   Q-net over per-node degree features (:70-81).
 - `DiverAgent`: a `GCNDeepDiver` emits diver_num score heads; the
-  best-solution-first tree search (`solve_mwis_bsf`, `_bsf_many`) pops
-  partial states from a host heap (`_BsfSearch`, the JAX package's search,
-  its per-head loop done in whole-array passes) and evaluates each pop
-  batch on the device in one call: masked supports, the GCN, the per-head
-  softmax, the guided weights and all Q x D guided LGS completions through
+  best-solution-first tree search (`solve_mwis_bsf`, and
+  `solve_mwis_bsf_many` for several instances in lockstep, both through
+  one loop, `_bsf_lockstep`) pops partial states from a host heap
+  (`_BsfSearch`, the JAX package's search, its per-head loop done in
+  whole-array passes) and evaluates each pop batch on the device in one
+  call: masked supports, the GCN, the per-head softmax, the guided
+  weights and all Q x D guided LGS completions through
   `ops.lgs.batched_lgs_multi` (one kernel launch with ``share = D`` on a
   card). Host-side draws use the JAX package's numpy seeds, so both
   packages search alike. The searches carry the program spans of
@@ -387,33 +389,12 @@ class DiverAgent(MWISSolver):
         contributes its completion as a candidate and, with probability
         `backoff_prob`, two children: a DEEPEN child fixing the head's
         highest-scored selected node and a BACKOFF child excluding it.
+        The search draws from the agent's own generator; it runs through
+        the lockstep loop as a group of one.
         """
         with span("distgcn.episode"):
-            s = _BsfSearch(adj_0, wts_0, max_pops, batch_pops,
-                           min(self.flags.diver_num, self.flags.diver_out),
-                           self.flags.backoff_prob, self._rng)
-            n = s.wts.size
-            bucket = pad_bucket(n, self.flags.pad_to)
-            adjs_dev = self._resident_adjs([s.adj], bucket)
-            wfull = np.zeros(bucket, np.float32)
-            wfull[:n] = s.wts
-            deadline = (time.time() + time_limit) if time_limit else None
-            while not s.done:
-                if deadline and time.time() > deadline:
-                    break
-                with span("distgcn.slot"):
-                    batch = s.pop_batch()
-                    if not batch:
-                        continue
-                    q = len(batch)
-                    masks = np.zeros((q, bucket), np.float32)
-                    for i, (_, ri, _, _) in enumerate(batch):
-                        masks[i, ri] = 1.0
-                    sels, probs_l = self._eval_heads_resident(
-                        adjs_dev, np.zeros(q, np.int64), masks,
-                        masks * wfull[None, :], [n] * q)
-                    s.absorb(batch, sels, probs_l)
-            return s.result()
+            return self._bsf_lockstep([(adj_0, wts_0)], lambda i: self._rng,
+                                      max_pops, time_limit, batch_pops, 1)[0]
 
     def solve_mwis_bsf_many(self, insts, max_pops: int = 16,
                             time_limit: float = None,
@@ -427,10 +408,18 @@ class DiverAgent(MWISSolver):
         constant `group`. insts: list of (adj, wts); returns a list of
         (set, util) in input order."""
         with span("distgcn.episode"):
-            return self._bsf_lockstep(insts, max_pops, time_limit,
-                                      batch_pops, group)
+            return self._bsf_lockstep(
+                insts, lambda i: np.random.default_rng((self._seed, i)),
+                max_pops, time_limit, batch_pops, group)
 
-    def _bsf_lockstep(self, insts, max_pops, time_limit, batch_pops, group):
+    def _bsf_lockstep(self, insts, rng, max_pops, time_limit, batch_pops,
+                      group):
+        """The search loop of both entries: up to `group` searches at a
+        time, instance i's joining with backoff generator ``rng(i)`` when
+        a place frees. A step pops, evaluates and absorbs every active
+        search; the deadline is checked before each step, and on it every
+        active search returns its best so far (instances not yet joined
+        return None)."""
         noout = min(self.flags.diver_num, self.flags.diver_out)
         backoff = self.flags.backoff_prob
         deadline = (time.time() + time_limit) if time_limit else None
@@ -448,9 +437,10 @@ class DiverAgent(MWISSolver):
                     i = todo.pop(0)
                     active.append((i, _BsfSearch(
                         insts[i][0], insts[i][1], max_pops, batch_pops,
-                        noout, backoff,
-                        np.random.default_rng((self._seed, i)))))
+                        noout, backoff, rng(i))))
                     joined = True
+                if deadline and time.time() > deadline:
+                    break
                 if joined or adjs_dev is None or nactive != len(active):
                     pads = [sp.csr_matrix((1, 1), dtype=np.float32)
                             ] * (group - len(active))
@@ -481,18 +471,15 @@ class DiverAgent(MWISSolver):
                         s.absorb(b, sels[o: o + len(b)],
                                  probs_l[o: o + len(b)])
                         o += len(b)
-                timed_out = deadline and time.time() > deadline
                 still = []
                 for idx, s in active:
-                    if s.done or timed_out:
+                    if s.done:
                         results[idx] = s.result()
                     else:
                         still.append((idx, s))
                 active = still
-                if timed_out:
-                    for idx, s in active:
-                        results[idx] = s.result()
-                    break
+        for idx, s in active:                   # stopped by the deadline
+            results[idx] = s.result()
         return results
 
     def solve_mwis_rollout_wrap(self, adj_0, wts_0, train: bool = False,

@@ -10,20 +10,23 @@ Support semantics match the reference: supports [I, L, ..., L^K] with
 L = I - normalize_adj(A), and ``L^k @ y`` is k applications of
 ``y - Anorm @ y`` (L^k is never built).
 
-Routes, as in the JAX package:
+Routes, as in the JAX package; a graph holds the arrays of its route
+only (`LargeGraph`):
 
-- BSR (``use_bsr``, the default on a CUDA device): for 0/1 adjacencies
-  (every conflict graph) the normalization is separable,
-  Anorm = diag(r) A diag(r), so only A's structure blocks (bitmap at an
-  inner block of ``min(block_size, 256)``) live on the device. With K=1
+- BSR (``use_bsr``, the default on a CUDA device): A's structure blocks
+  (bitmap at an inner block of ``min(block_size, 256)``). For 0/1
+  adjacencies (every conflict graph) the normalization is separable,
+  Anorm = diag(r) A diag(r), so the blocks and ``r`` are all the device
+  holds; a weighted Anorm adds its edge form on the same blocks. With K=1
   each GCN layer is one fused-layer kernel (`ops/cheb_fused.py`); K>1,
   weighted adjacencies and ``fused=False`` go through the BSR SpMM
   (`ops.spmm.bsr_spmm_rows`; a weighted Anorm as its edge form on the
   structure blocks, `ops.spmm.edge_spmm_rows`), and the LGS streams the
   same blocks through the neighbour-max (`bsr_lgs`). On CUDA tensors these
   launch the three CUDA kernels; on CPU tensors their plain versions run.
-- ELL (``use_bsr=False``): gather SpMM (`ops.spmm.ell_spmm`) and the
-  gather LGS (`ops.lgs.ell_lgs`), on either device.
+- ELL (``use_bsr=False``): Anorm as ELLPACK arrays, the gather SpMM
+  (`ops.spmm.ell_spmm`) and the gather LGS (`ops.lgs.ell_lgs`), on
+  either device.
 
 Feature semantics match `mwis_gdpg_call.py:82-97` (makestate):
 predict='mwis' -> ones / F; else w / max(w) broadcast.
@@ -60,22 +63,21 @@ from distgcn_tpu_torch.utils.profiling import span
 class LargeGraph:
     """One large conflict graph, preprocessed for the device pipeline.
 
-    Anorm = normalize_adj(A) is held as ELLPACK cols/vals (the gather
-    route and the ELL LGS) and, on the BSR route, as A's 0/1 structure
-    blocks, plus, where the normalization is not separable or
-    ``value_blocks=True``, Anorm's values on those blocks (``edge``, the
-    SpMM's operand) and f32 value blocks (``bsr``, which no solve reads).
+    Each route holds only what its solves read. The ELL route holds
+    Anorm = normalize_adj(A) as ELLPACK cols/vals/valid (the gather SpMM
+    and the ELL LGS). The BSR route holds A's 0/1 structure blocks (the
+    fused layer, the SpMM and the LGS) and either ``r`` (a separable
+    normalization, Anorm = diag(r) A diag(r)) or ``edge``, Anorm's values
+    on the structure blocks (the SpMM's operand for a weighted A).
     """
     n: int                      # real node count
     n_pad: int                  # padded (multiple of block_size)
     nnz: int                    # directed edge count of A
     block_size: int
     mask: torch.Tensor          # [n_pad] bool
-    ell_cols: torch.Tensor      # [n_pad, K] int32
-    ell_vals: torch.Tensor      # [n_pad, K] f32 (Anorm values; 0 = padding)
-    ell_valid: torch.Tensor     # [n_pad, K] bool (real-edge mask)
-    bsr: Optional[BsrMatrix] = None          # Anorm value blocks
-    row_ptr: Optional[torch.Tensor] = None
+    ell_cols: Optional[torch.Tensor] = None   # [n_pad, K] int32
+    ell_vals: Optional[torch.Tensor] = None   # [n_pad, K] f32 (0 = padding)
+    ell_valid: Optional[torch.Tensor] = None  # [n_pad, K] bool (real edges)
     ind_bsr: Optional[BsrMatrix] = None      # A's 0/1 structure blocks
     ind_row_ptr: Optional[torch.Tensor] = None
     bitmap: bool = False                     # ind_bsr is bitmap-packed
@@ -90,18 +92,17 @@ class LargeGraph:
 
 def build_large_graph(adj, block_size: int = 512,
                       use_bsr: Optional[bool] = None,
-                      value_blocks: Optional[bool] = None,
                       device=None) -> LargeGraph:
     """Preprocess a scipy adjacency into a `LargeGraph` on `device`.
 
     Keep the graph locality-ordered (`geometric_conflict_graph`'s orders)
     before calling: the number of touched blocks, and with it the kernels'
     work, depends on it. ``use_bsr`` defaults to True on a CUDA device.
-    For 0/1 adjacencies only structure blocks are built unless
-    ``value_blocks=True``; weighted adjacencies always build f32 value
-    blocks and Anorm's edge form on the structure blocks (from its COO, on
-    the host). The structure blocks are ``min(block_size, 256)`` wide and
-    bitmap-packed when that is a multiple of 32.
+    ``use_bsr=False`` builds the ELL arrays only. The BSR route builds
+    the structure blocks, ``min(block_size, 256)`` wide and bitmap-packed
+    when that is a multiple of 32, with ``r`` for a 0/1 adjacency or, for
+    a weighted one, Anorm's edge form on those blocks (from its COO, on
+    the host).
     """
     dev = resolve_device(device)
     adj = sp.csr_matrix(adj)
@@ -110,24 +111,33 @@ def build_large_graph(adj, block_size: int = 512,
     separable = bool(adj.nnz == 0 or np.all(adj.data == 1))
     if use_bsr is None:
         use_bsr = dev.type == "cuda"
-    if value_blocks is None:
-        value_blocks = not separable
     n_pad = -(-n // block_size) * block_size
-    cols, vals = ell_pack(anorm)
-    k = cols.shape[1]
-    cols_p = np.tile(np.arange(n_pad, dtype=np.int32)[:, None], (1, k))
-    vals_p = np.zeros((n_pad, k), np.float32)
-    cols_p[:n] = cols
-    vals_p[:n] = vals
     mask = np.zeros(n_pad, bool)
     mask[:n] = True
-    g = LargeGraph(
-        n=n, n_pad=n_pad, nnz=int(adj.nnz), block_size=block_size,
-        mask=torch.from_numpy(mask).to(dev),
-        ell_cols=torch.from_numpy(cols_p).to(dev),
-        ell_vals=torch.from_numpy(vals_p).to(dev),
-        ell_valid=torch.from_numpy(vals_p != 0).to(dev),
-        separable=separable)
+    g = LargeGraph(n=n, n_pad=n_pad, nnz=int(adj.nnz), block_size=block_size,
+                   mask=torch.from_numpy(mask).to(dev), separable=separable)
+    if not use_bsr:
+        cols, vals = ell_pack(anorm)
+        k = cols.shape[1]
+        cols_p = np.tile(np.arange(n_pad, dtype=np.int32)[:, None], (1, k))
+        vals_p = np.zeros((n_pad, k), np.float32)
+        cols_p[:n] = cols
+        vals_p[:n] = vals
+        g.ell_cols = torch.from_numpy(cols_p).to(dev)
+        g.ell_vals = torch.from_numpy(vals_p).to(dev)
+        g.ell_valid = torch.from_numpy(vals_p != 0).to(dev)
+        return g
+    ibs = min(block_size, 256)
+    if n_pad % ibs:
+        raise ValueError(f"the structure block min(block_size, 256)={ibs} "
+                         f"must divide n_pad={n_pad}")
+    ind = anorm.copy()
+    ind.data[:] = 1.0          # structure only
+    ind.resize(n_pad, n_pad)
+    g.bitmap = ibs % 32 == 0
+    g.ind_bsr = BsrMatrix.from_scipy(
+        ind, ibs, dtype="bits" if g.bitmap else np.int8, device=dev)
+    g.ind_row_ptr = bsr_row_ptr(g.ind_bsr)
     if separable:
         # d_inv_sqrt exactly as normalize_adj computes it (float64 power)
         rowsum = np.asarray(adj.sum(1)).ravel()
@@ -137,24 +147,8 @@ def build_large_graph(adj, block_size: int = 512,
         rp = np.zeros((n_pad, 1), np.float32)
         rp[:n, 0] = r
         g.r = torch.from_numpy(rp).to(dev)
-    if use_bsr:
-        if value_blocks:
-            g.bsr = BsrMatrix.from_scipy(anorm, block_size, dtype=np.float32,
-                                         device=dev)
-            g.row_ptr = bsr_row_ptr(g.bsr)
-        ibs = min(block_size, 256)
-        if n_pad % ibs:
-            raise ValueError(f"the structure block min(block_size, 256)={ibs} "
-                             f"must divide n_pad={n_pad}")
-        ind = anorm.copy()
-        ind.data[:] = 1.0          # structure only
-        ind.resize(n_pad, n_pad)
-        g.bitmap = ibs % 32 == 0
-        g.ind_bsr = BsrMatrix.from_scipy(
-            ind, ibs, dtype="bits" if g.bitmap else np.int8, device=dev)
-        g.ind_row_ptr = bsr_row_ptr(g.ind_bsr)
-        if value_blocks:
-            g.edge = edge_values_coo(anorm, g.ind_bsr)
+    else:
+        g.edge = edge_values_coo(anorm, g.ind_bsr)
     return g
 
 

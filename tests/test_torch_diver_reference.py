@@ -287,6 +287,24 @@ def test_spans_nest_and_counters_count(entry, monkeypatch):
         assert g[2] <= first_lgs[1]
 
 
+@pytest.mark.parametrize("entry", ["single", "many"])
+def test_a_passed_deadline_stops_before_the_first_step(entry):
+    """Both entries check the deadline before each step: one already
+    passed makes no device call, every joined search returns its empty
+    best and an instance not yet joined returns None."""
+    agent = _agent(SMALL)
+    qs = _counted(agent)
+    insts = [(sp.csr_matrix(a), w) for a, w in _graphs(11, 3, 12, 30)]
+    if entry == "single":
+        got = agent.solve_mwis_bsf(*insts[0], max_pops=8, time_limit=-1.0)
+        assert got == (set(), 0.0)
+    else:
+        got = agent.solve_mwis_bsf_many(insts, max_pops=8, time_limit=-1.0,
+                                        group=2)
+        assert got == [(set(), 0.0), (set(), 0.0), None]
+    assert qs == []
+
+
 def test_results_are_bit_equal_with_the_profiler_on_and_off():
     graphs = _graphs(10, 4, 12, 30)
     off = _program_search(_agent(SMALL), graphs, 8, 4, 2)

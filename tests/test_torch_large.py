@@ -86,8 +86,14 @@ def test_build_large_graph_matches_jax(weighted):
                              interpret=True)
     assert (g.n, g.n_pad, g.nnz, g.separable, g.bitmap) == (
         jg.n, jg.n_pad, jg.nnz, jg.separable, jg.bitmap)
+    # each route holds its own arrays: the ELL ones on the ELL route only
+    ge = T.build_large_graph(adj, block_size=128, use_bsr=False,
+                             device="cpu")
+    assert g.ell_cols is None and g.ell_vals is None and g.ell_valid is None
+    assert ge.ind_bsr is None and ge.edge is None
+    np.testing.assert_array_equal(g.mask.numpy(), np.asarray(jg.mask))
     for name in ("mask", "ell_cols", "ell_vals", "ell_valid"):
-        np.testing.assert_array_equal(getattr(g, name).numpy(),
+        np.testing.assert_array_equal(getattr(ge, name).numpy(),
                                       np.asarray(getattr(jg, name)))
     assert (g.r is None) == weighted == (jg.r is None)
     if not weighted:
@@ -114,26 +120,22 @@ def test_build_large_graph_matches_jax(weighted):
     np.testing.assert_array_equal(g.ind_row_ptr.numpy()[:-1],
                                   np.asarray(jax_row_ptr(jb))[:-1])
     if weighted:
-        nb = jg.bsr.nb_real
-        np.testing.assert_array_equal(g.bsr.blk_vals.numpy(),
-                                      np.asarray(jg.bsr.blk_vals)[:nb])
-        np.testing.assert_array_equal(g.bsr.blk_cols.numpy(),
-                                      np.asarray(jg.bsr.blk_cols)[:nb])
-        np.testing.assert_array_equal(g.row_ptr.numpy()[:-1],
-                                      np.asarray(jg.row_ptr)[:-1])
         # the SpMM's operand: Anorm's values on the structure blocks, equal
-        # to the torch builder's rebuild from the value blocks (the same
-        # 128-wide blocks) and to the value matrix's own edge form
+        # to `edge_values` of JAX's own f32 value blocks (the same
+        # 128-wide blocks)
         assert g.edge.words is ind.blk_vals
-        rebuilt = edge_values(g.bsr.blk_vals, g.row_ptr)
-        for e in (rebuilt, g.bsr.edge):
-            np.testing.assert_array_equal(e.words.numpy(),
-                                          ind.blk_vals.numpy())
-            np.testing.assert_array_equal(e.vals.numpy(), g.edge.vals.numpy())
-            np.testing.assert_array_equal(e.off.numpy(), g.edge.off.numpy())
+        nb = jg.bsr.nb_real
+        rebuilt = edge_values(torch.from_numpy(np.array(jg.bsr.blk_vals)[:nb]),
+                              torch.from_numpy(np.array(jg.row_ptr)))
+        np.testing.assert_array_equal(rebuilt.words.numpy(),
+                                      ind.blk_vals.numpy())
+        np.testing.assert_array_equal(rebuilt.vals.numpy(),
+                                      g.edge.vals.numpy())
+        np.testing.assert_array_equal(rebuilt.off.numpy(),
+                                      g.edge.off.numpy())
         assert g.edge.vals.numel() == adj.nnz
     else:
-        assert g.bsr is None and jg.bsr is None and g.edge is None
+        assert jg.bsr is None and g.edge is None
 
 
 @pytest.mark.parametrize("seed,max_rounds", [(0, None), (1, None), (2, 2),
@@ -162,9 +164,11 @@ def test_lgs_routes_bit_equal_to_jax_and_host(seed, max_rounds):
         mask = mask & (torch.arange(gb.n_pad) % 5 != 0)
     outs = [T.bsr_lgs(g, wt, g.mask if seed != 3 else mask, max_rounds)
             for g in (g8, gb)]
-    outs.append(ell_lgs(gb.ell_cols, gb.ell_valid, wt, mask, max_rounds))
+    ge = T.build_large_graph(adj, block_size=128, use_bsr=False,
+                             device="cpu")
+    outs.append(ell_lgs(ge.ell_cols, ge.ell_valid, wt, mask, max_rounds))
     jsel, jutil, jrounds = jax_ell_lgs(
-        jnp.asarray(gb.ell_cols.numpy()), jnp.asarray(gb.ell_valid.numpy()),
+        jnp.asarray(ge.ell_cols.numpy()), jnp.asarray(ge.ell_valid.numpy()),
         jnp.asarray(w), jnp.asarray(mask.numpy()), max_rounds)
     jg = J.build_large_graph(adj, block_size=128, use_pallas=True,
                              interpret=True)

@@ -528,7 +528,10 @@ def test_large_solve_on_card_goes_through_the_kernels(cuda, monkeypatch):
     n0 = bsr_nbr_max_kernel.launches
     bsel, _, rounds = large.bsr_lgs(g, gcn_wts, g.mask)
     assert bsr_nbr_max_kernel.launches - n0 == 2 * int(rounds)
-    esel = large.ell_lgs(g.ell_cols, g.ell_valid, gcn_wts, g.mask)[0]
+    ge = large.build_large_graph(adj, block_size=512, use_bsr=False,
+                                 device=cuda)
+    assert g.ell_cols is None and ge.ind_bsr is None
+    esel = large.ell_lgs(ge.ell_cols, ge.ell_valid, gcn_wts, g.mask)[0]
     assert torch.equal(bsel, esel) and torch.equal(bsel, sel)
     # the exact route: one SpMM launch per layer
     s0 = bsr_spmm_kernel.launches
@@ -544,7 +547,8 @@ _LGS_GRAPHS = {}
 
 def _lgs_graph(cuda, n, bs, isolated):
     """A geometric graph of n links on blocks of `bs` (every 9th link
-    isolated if asked), built once per (n, bs, isolated)."""
+    isolated if asked) on the BSR and on the ELL route, built once per
+    (n, bs, isolated)."""
     key = (n, bs, isolated)
     if key not in _LGS_GRAPHS:
         adj, wts, _ = large.geometric_conflict_graph(
@@ -555,9 +559,11 @@ def _lgs_graph(cuda, n, bs, isolated):
             adj.eliminate_zeros()
         g = large.build_large_graph(adj, block_size=bs, device=cuda)
         assert g.bitmap and g.ind_bsr.block_size == bs
+        ge = large.build_large_graph(adj, block_size=bs, use_bsr=False,
+                                     device=cuda)
         w = torch.zeros(g.n_pad)
         w[:n] = torch.from_numpy(wts)
-        _LGS_GRAPHS[key] = (g, w.to(cuda))
+        _LGS_GRAPHS[key] = (g, ge, w.to(cuda))
     return _LGS_GRAPHS[key]
 
 
@@ -595,7 +601,7 @@ def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
     rounds composed from the plain neighbour-max and against `ell_lgs`:
     sel, util and rounds bit-equal, two launches a round. 300 and 5,000
     links leave padding rows without neighbours."""
-    g, w = _lgs_graph(cuda, n, bs, case == "isolated")
+    g, ge, w = _lgs_graph(cuda, n, bs, case == "isolated")
     mask, max_rounds = g.mask, None
     if case == "ties":
         w = torch.round(w * 4) / 4
@@ -613,7 +619,7 @@ def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
     assert sel.dtype == torch.int8 and torch.equal(sel, psel)
     assert int(rounds) == prounds
     assert torch.equal(util.view(torch.int32), putil.view(torch.int32))
-    esel, _, erounds = large.ell_lgs(g.ell_cols, g.ell_valid, w, mask,
+    esel, _, erounds = large.ell_lgs(ge.ell_cols, ge.ell_valid, w, mask,
                                      max_rounds)
     assert torch.equal(sel, esel) and int(erounds) == prounds
     assert not sel[~mask].any()
