@@ -54,7 +54,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    the fused route and the exact route (SpMM kernel), both schedules
    independent and maximal with utilities within 1%; `bsr_lgs` through
    the neighbour-max kernel equal to the plain `ell_lgs`; 20 fused-layer
-   launches per fused solve and 2 neighbour-max launches per LGS round;
+   launches per fused solve and 2 neighbour-max launches per LGS round
+   enqueued (`bsr_lgs.rounds_enqueued`, gated rounds included);
    the per-solve time as the marginal of two repeat counts, edges x
    layers / s, and the time of the solve with the GCN hoisted; then the
    weighted exact solve on phase 6's weighted copy: independent and
@@ -72,7 +73,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    the bound of the f32 value blocks, the plain version's time,
    `torch.sparse.mm` on a CSR copy of the weighted matrix and the edge
    form of the 512-wide value matrix); beside the neighbour-max, its
-   two launches of a large LGS round (the rank and spread passes); beside
+   two launches of a large LGS round (the rank and spread passes) and
+   each of them gated (the previous round's count 0); beside
    the fused layer,
    `exact_layer_ms`: the exact route's layer on the same inputs (SpMM
    kernel, two f32 matmuls, epilogue), timed the same way;
@@ -866,10 +868,12 @@ def phase_large_solve(dev, L) -> None:
     m = g.mask.to(torch.float32)
     solve = make_large_solve(g, predict="dqn")
     f0, n0 = fused_cheb_layer_kernel.launches, bsr_nbr_max_kernel.launches
+    e0 = bsr_lgs.rounds_enqueued
     sel_f, util_f, _ = solve(plist, w)
     torch.cuda.synchronize()
     fused_launches = fused_cheb_layer_kernel.launches - f0
     nbr_launches = bsr_nbr_max_kernel.launches - n0
+    solve_enqueued = bsr_lgs.rounds_enqueued - e0
     check(fused_launches == LARGE_LAYERS,
           f"fused solve launched the fused layer {fused_launches} times")
     s0, f0 = bsr_spmm_kernel.launches, fused_cheb_layer_kernel.launches
@@ -889,22 +893,25 @@ def phase_large_solve(dev, L) -> None:
     # the LGS through the kernel against the plain gather LGS
     norm = (w.abs() * m).max() + 1e-9
     gcn_wts = large_gcn_forward(g, plist, (w / norm * m)[:, None])[:, 0] * m
-    n1 = bsr_nbr_max_kernel.launches
+    n1, e1 = bsr_nbr_max_kernel.launches, bsr_lgs.rounds_enqueued
     bsel, _, rounds = bsr_lgs(g, gcn_wts, g.mask)
     torch.cuda.synchronize()
-    check(bsr_nbr_max_kernel.launches - n1 == 2 * int(rounds),
-          "bsr_lgs did not launch the neighbour-max twice per round")
+    enqueued = bsr_lgs.rounds_enqueued - e1
+    check(bsr_nbr_max_kernel.launches - n1 == 2 * enqueued >= 2 * int(rounds),
+          "bsr_lgs did not launch the neighbour-max twice per round "
+          "enqueued")
     ge = build_large_graph(L.adj, block_size=512, use_bsr=False, device=dev)
     esel, _, erounds = ell_lgs(ge.ell_cols, ge.ell_valid, gcn_wts, g.mask)
     check(torch.equal(bsel, esel) and int(rounds) == int(erounds),
           "bsr_lgs differs from the plain ell_lgs")
     check(torch.equal(bsel, sel_f), "bsr_lgs differs from the fused solve")
-    check(nbr_launches == 2 * int(rounds), "solve's LGS launches")
+    check(nbr_launches == 2 * solve_enqueued, "solve's LGS launches")
     print(f"phase 7: make_large_solve dqn, {LARGE_LAYERS}x{LARGE_WIDTH} "
           f"GCN: fused and exact schedules independent and maximal; "
           f"utility fused {util_f:.6f}, exact {util_x:.6f} (rel diff "
           f"{rel:.4%}), {flips} selections differ; bsr_lgs == ell_lgs "
-          f"({int(rounds)} rounds); launches per fused solve: fused layer "
+          f"({int(rounds)} rounds, {enqueued} enqueued); launches per "
+          f"fused solve: fused layer "
           f"{fused_launches}, neighbour-max {nbr_launches}; per exact "
           f"solve: SpMM {spmm_launches}", flush=True)
     per_solve = marginal_s(lambda i: solve(plist, w * (1.0 + 0.001 * i)))
@@ -1036,22 +1043,24 @@ def phase_large_timing(dev, L) -> dict:
            "list, the x[src] gather counted)")
     # the large LGS round's two launches of the same kernel on the same
     # operand, each with its epilogue (the spread pass's replays find the
-    # first replay's winners decided); bound at each call to the capturing
-    # stream
+    # first replay's winners decided), open (counts slot 0 holds 1) and
+    # gated (slot 2 holds 0); bound at each call to the capturing stream
     key, win = x.clone(), torch.empty_like(x)
     sel = torch.full((n,), -1, dtype=torch.int8, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
+    counts = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
 
     def passes():
         return lgs_round_passes(ind.blk_vals, rp, ind.blk_cols, key, win, sel,
-                                count, n, 256, True)
+                                counts, n, 256, True)
 
     for i, name in enumerate(("rank", "spread")):
-        out[f"lgs_{name}_pass"] = {
-            "ms": graph_ms(lambda: passes()[i](), 100, flush)}
-        print(f"phase 9: bsr_nbr_max lgs {name} pass, L2 flushed: kernel "
-              f"{out[f'lgs_{name}_pass']['ms']:.4f} ms (the plain store "
-              f"{ms:.4f} ms)", flush=True)
+        for gate, prev in (("", 0), ("gated_", 2)):
+            kind = f"lgs_{gate}{name}_pass"
+            out[kind] = {"ms": graph_ms(lambda: passes()[i](prev, 1), 100,
+                                        flush)}
+            print(f"phase 9: bsr_nbr_max lgs {gate}{name} pass, L2 "
+                  f"flushed: kernel {out[kind]['ms']:.4f} ms (the plain "
+                  f"store {ms:.4f} ms)", flush=True)
     # SpMM on the exact route's operand
     y = torch.randn((n, f), generator=gen, device=dev) * g.r
     ms = graph_ms(lambda: bsr_spmm_rows(ind, y, rp), 50, flush)
@@ -1173,10 +1182,10 @@ def phase_sharded(dev, L) -> SimpleNamespace:
     g, w = L.g, L.w
     # the single-card references, before the counts are reset
     with exact_route():
-        n0 = bsr_nbr_max_kernel.launches
+        n0 = bsr_lgs.rounds
         xsel, xutil, _ = make_large_solve(g, predict="dqn")(L.plist, w)
         torch.cuda.synchronize()
-        x_rounds = (bsr_nbr_max_kernel.launches - n0) // 2
+        x_rounds = bsr_lgs.rounds - n0
     bsel, butil, b_rounds = bsr_lgs(g, w, g.mask)
     b_rounds = int(b_rounds)
     t0 = time.perf_counter()

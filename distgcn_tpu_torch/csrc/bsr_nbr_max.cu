@@ -59,16 +59,25 @@
 // for the warp's own rows (the walk and the max are the same code):
 //   rank pass   (bsr_nbr_max_lgs_rank_launch), x = key, where key[j] is
 //     node j's rank while it is undecided and -1 once decided:
-//     win[i] = key[i] >= 0 && key[i] > m ? 1 : 0, and *left = 0. The
+//     win[i] = key[i] >= 0 && key[i] > m ? 1 : 0, and *cur = 0. The
 //     key[i] >= 0 test keeps a decided row with no neighbour (m is the
 //     sentinel) from winning.
 //   spread pass (bsr_nbr_max_lgs_spread_launch), x = win: a winner gets
 //     sel = 1, an undecided row with a winning neighbour (m > 0) gets
-//     sel = 0, and both get key = -1; *left += the rows still undecided
+//     sel = 0, and both get key = -1; *cur += the rows still undecided
 //     (one atomicAdd a warp, exact in any order).
 // The rank pass reads the neighbours' key and writes only win; the spread
 // pass reads the neighbours' win and writes only its own rows' key and
 // sel: neither reads what it writes.
+//
+// Both passes of a round take two counts: *prev, the previous round's
+// count of rows left (or any nonzero value before the first round), and
+// *cur, this round's. Where *prev is 0 the round has nothing to do, and
+// both passes return before their walk: the rank pass only zeroes *cur,
+// so the rounds after it stay gated too. So the host may enqueue several
+// rounds between two reads of the counts (large.bsr_lgs): a round past
+// the last costs a launch, not two walks. *prev is written only by the
+// previous round's spread pass, so it is fixed during either launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,9 +167,10 @@ enum Epilogue : int {
 
 // the LGS round's state, read and written by the kRank and kSpread passes
 struct LgsRound {
-  float* key;      // [rows] rank while undecided, -1 once decided
-  int8_t* sel;     // [rows] -1 undecided, 1 selected, 0 excluded
-  int32_t* left;   // rows still undecided after the spread pass
+  float* key;            // [rows] rank while undecided, -1 once decided
+  int8_t* sel;           // [rows] -1 undecided, 1 selected, 0 excluded
+  const int32_t* prev;   // rows undecided before the round; 0 gates it
+  int32_t* cur;          // rows still undecided after the spread pass
 };
 
 template <typename T, int kEpi>
@@ -174,7 +184,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   static_assert(kEpi == kStore || std::is_same_v<T, float>,
                 "the LGS passes carry f32");
   if constexpr (kEpi == kRank) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) *lgs.left = 0;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *lgs.cur = 0;
+  }
+  if constexpr (kEpi != kStore) {
+    if (*lgs.prev == 0) return;  // whole launch: no round left to do
   }
   __shared__ uint32_t list_w[kWarps][kGroup * 32];
   __shared__ T list_x[kWarps][kGroup * 32];
@@ -252,7 +265,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       open = false;
     }
     const uint32_t live = __ballot_sync(0xffffffffu, open);
-    if (lane == 0 && live != 0u) atomicAdd(lgs.left, __popc(live));
+    if (lane == 0 && live != 0u) atomicAdd(lgs.cur, __popc(live));
   }
 }
 
@@ -294,7 +307,7 @@ int launch_lgs_pass(const void* words, const void* row_ptr,
   if (n_groups == 0) {
     // no row: nothing is undecided
     return static_cast<int>(
-        cudaMemsetAsync(lgs.left, 0, sizeof(int32_t), s));
+        cudaMemsetAsync(lgs.cur, 0, sizeof(int32_t), s));
   }
   nbr_max_bitmap_kernel<float, kEpi><<<(n_groups + kWarps - 1) / kWarps,
                                        kWarps * 32, 0, s>>>(
@@ -331,28 +344,32 @@ int bsr_nbr_max_i32_launch(const void* vals, int bitmap, const void* row_ptr,
 }
 
 // One round of the large LGS over bitmap blocks is two launches on
-// `stream` (top of the file): the rank pass reads key, writes win and
-// zeroes *left; the spread pass reads win, updates key and sel (int8) and
-// counts the rows still undecided into *left. key, win and sel have
-// n_block_rows * bs rows and cover every block column; left is one int32.
+// `stream` (top of the file): the rank pass zeroes *cur, then reads key
+// and writes win; the spread pass reads win, updates key and sel (int8)
+// and counts the rows still undecided into *cur. Where *prev is 0 both
+// do nothing else. key, win and sel have n_block_rows * bs rows and cover
+// every block column; prev and cur are two different int32.
 int bsr_nbr_max_lgs_rank_launch(const void* words, const void* row_ptr,
                                 const void* blk_cols, const void* key,
-                                void* win, void* left, int n_block_rows,
-                                int bs, void* stream) {
+                                void* win, const void* prev, void* cur,
+                                int n_block_rows, int bs, void* stream) {
   return launch_lgs_pass<kRank>(
       words, row_ptr, blk_cols, key, win,
-      LgsRound{nullptr, nullptr, static_cast<int32_t*>(left)},
+      LgsRound{nullptr, nullptr, static_cast<const int32_t*>(prev),
+               static_cast<int32_t*>(cur)},
       n_block_rows, bs, stream);
 }
 
 int bsr_nbr_max_lgs_spread_launch(const void* words, const void* row_ptr,
                                   const void* blk_cols, const void* win,
-                                  void* key, void* sel, void* left,
-                                  int n_block_rows, int bs, void* stream) {
+                                  void* key, void* sel, const void* prev,
+                                  void* cur, int n_block_rows, int bs,
+                                  void* stream) {
   return launch_lgs_pass<kSpread>(
       words, row_ptr, blk_cols, win, nullptr,
       LgsRound{static_cast<float*>(key), static_cast<int8_t*>(sel),
-               static_cast<int32_t*>(left)},
+               static_cast<const int32_t*>(prev),
+               static_cast<int32_t*>(cur)},
       n_block_rows, bs, stream);
 }
 

@@ -32,7 +32,9 @@ Feature semantics match `mwis_gdpg_call.py:82-97` (makestate):
 predict='mwis' -> ones / F; else w / max(w) broadcast.
 
 The JAX package runs a solve as one jitted program with a `while_loop`;
-here `bsr_lgs` and `ell_lgs` synchronise with the host once per round.
+here `bsr_lgs` reads the device's counts of nodes left once per batch of
+rounds (a batch usually holds the whole solve), and `ell_lgs` once per
+round.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ import torch
 from distgcn_tpu_torch.core import prep
 from distgcn_tpu_torch.models.layers import identity, leaky_relu02
 from distgcn_tpu_torch.ops.cheb_fused import fused_forward, pad_params
-from distgcn_tpu_torch.ops.lgs import ell_lgs, lgs_ranks
-from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues, _pad_rows,
+from distgcn_tpu_torch.ops.lgs import ell_lgs, lgs_order
+from distgcn_tpu_torch.ops.spmm import (BsrMatrix, EdgeValues,
                                         bsr_row_ptr, bsr_spmm_rows,
                                         edge_spmm_rows, edge_values_coo,
                                         ell_pack, ell_spmm, lgs_round_passes)
@@ -84,6 +86,7 @@ class LargeGraph:
     r: Optional[torch.Tensor] = None         # [n_pad, 1] f32 = deg^-1/2
     separable: bool = False
     edge: Optional[EdgeValues] = None        # Anorm's values on ind_bsr
+    lgs_state: Optional["LgsState"] = None   # `bsr_lgs`'s, made at first use
 
     @property
     def use_bsr(self) -> bool:
@@ -221,6 +224,74 @@ def large_gcn_forward(graph: LargeGraph, params_list, x: torch.Tensor,
     return h
 
 
+LGS_RING = 32        # slots of a graph's ring of per-round counts
+LGS_FIRST = 4        # the first batch of a graph's first solve
+
+
+@dataclass
+class LgsState:
+    """A graph's `bsr_lgs` state on one device, kept between its solves.
+
+    ``counts`` (int32 [1 + LGS_RING]): slot 0 holds 1, the open count that
+    lets the first round run; round r counts the nodes it leaves undecided
+    into slot 1 + r % LGS_RING. ``key``, ``win`` and ``sel`` ([n_pad] f32,
+    f32, int8): the rounds' state, which ``passes`` (the round's two
+    passes, `ops.spmm.lgs_round_passes`) are bound to, with ``stream`` the
+    CUDA stream they launch on (None on the CPU). ``rounds``: the last
+    solve's rounds (None before the first), which sizes the next solve's
+    first batch. ``desc``: n, n - 1, ..., 1 in f32, the ranks in
+    `lgs_order`'s order, for n weights; ``decided``: -1.0, the key of a
+    node out of the mask."""
+    counts: torch.Tensor
+    key: torch.Tensor
+    win: torch.Tensor
+    sel: torch.Tensor
+    decided: torch.Tensor
+    passes: tuple = ()
+    stream: Optional[torch.cuda.Stream] = None
+    rounds: Optional[int] = None
+    desc: Optional[torch.Tensor] = None
+
+
+def _lgs_state(graph: LargeGraph, device: torch.device) -> LgsState:
+    """The graph's `bsr_lgs` state on `device`, made at its first solve
+    there. Its passes are bound again when the current CUDA stream is
+    another one, which first waits for the last."""
+    state, ind = graph.lgs_state, graph.ind_bsr
+    if state is None or state.counts.device != device:
+        rows = ind.n_rows
+        state = graph.lgs_state = LgsState(
+            counts=torch.tensor([1] + [0] * LGS_RING, dtype=torch.int32,
+                                device=device),
+            key=torch.full((rows,), -1.0, device=device),
+            win=torch.zeros(rows, device=device),
+            sel=torch.zeros(rows, dtype=torch.int8, device=device),
+            decided=torch.tensor(-1.0, device=device))
+    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
+              else None)
+    if not state.passes or stream != state.stream:
+        if stream is not None and state.stream is not None:
+            stream.wait_stream(state.stream)
+        state.passes = lgs_round_passes(
+            ind.blk_vals, graph.ind_row_ptr, ind.blk_cols, state.key,
+            state.win, state.sel, state.counts, ind.n_rows, ind.block_size,
+            graph.bitmap)
+        state.stream = stream
+    return state
+
+
+def lgs_batches(first: int, cap: int):
+    """The sizes of a solve's batches of rounds: ``first``, then 2, 4, 8,
+    ..., each cut to the rounds left under ``cap`` and to LGS_RING - 1
+    (a batch never overwrites the count that gates its first round)."""
+    done, size = 0, first
+    while done < cap:
+        k = min(size, cap - done, LGS_RING - 1)
+        yield k
+        done += k
+        size = 2 if done == k else 2 * size
+
+
 @torch.no_grad()
 def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
             max_rounds: Optional[int] = None):
@@ -230,12 +301,25 @@ def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
     :106-111 tie-break folded into the ranks). A round is two passes over
     the graph's structure blocks, each a neighbour-max with the round's
     logic after it (`ops.spmm.lgs_round_passes`: the remaining-rank max
-    and the winners, then the winner spread, the selections and the count
-    of nodes left), then one read of that count by the host. A node's key
-    is its rank while undecided and -1 once decided; ranks ride in f32,
-    exact below 2^24 nodes. When `mask` is the graph's own, the first
-    round starts without a read. Returns (sel [n_pad] int8, util,
-    rounds).
+    and the winners, then the winner spread, the selections and the
+    round's count of nodes left). A node's key is its rank while
+    undecided and -1 once decided; ranks ride in f32, exact below 2^24
+    nodes.
+
+    The host enqueues the rounds in batches (`lgs_batches`: the first
+    holds the graph's last solve's rounds plus one, LGS_FIRST on its first
+    solve) and reads the batch's counts once after it. The solve's rounds
+    are 1 + the index of the first zero count. A round after that finds
+    the previous count 0 and is gated (a launch each pass, no walk), so
+    sel, util and rounds are those of one read a round, and no round past
+    ``max_rounds`` is enqueued. When `mask` is the graph's own, the first
+    batch starts without a read. The rounds' state and their bound passes
+    are the graph's (`LgsState`), kept for its next solve. Returns (sel
+    [n_pad] int8, util, rounds).
+
+    Counters: ``bsr_lgs.reads`` (host reads of the counts),
+    ``bsr_lgs.rounds_enqueued`` (rounds launched, gated or not) and
+    ``bsr_lgs.rounds`` (rounds that did work).
     """
     ind = graph.ind_bsr
     n = wts.shape[0]
@@ -243,31 +327,55 @@ def bsr_lgs(graph: LargeGraph, wts: torch.Tensor, mask: torch.Tensor,
         # integers above 2^24 are not exact in f32: tied ranks would stall
         raise ValueError(f"n_pad={ind.n_rows} >= 2^24: LGS ranks lose "
                          "exactness in f32 — partition the solve")
-    rows = ind.n_rows
-    ranks = lgs_ranks(wts).to(torch.float32)
-    key = _pad_rows(torch.where(mask, ranks, -1.0), rows, -1.0)
-    sel = _pad_rows(torch.where(mask, -1, 0).to(torch.int8), rows, 0)
-    win = torch.empty_like(key)
-    n_left = torch.empty((), dtype=torch.int32, device=wts.device)
-    rank_pass, spread_pass = lgs_round_passes(
-        ind.blk_vals, graph.ind_row_ptr, ind.blk_cols, key, win, sel, n_left,
-        rows, ind.block_size, graph.bitmap)
+    state = _lgs_state(graph, wts.device)
+    if state.desc is None or state.desc.shape[0] != n:
+        state.desc = torch.arange(n, 0, -1, dtype=torch.float32,
+                                  device=wts.device)
+    # key: the ranks (`lgs_ranks`) where the mask is set, -1 elsewhere;
+    # sel: -1 (undecided) where it is set, 0 elsewhere
+    ranks = torch.empty_like(state.desc).scatter_(0, lgs_order(wts),
+                                                  state.desc)
+    torch.where(mask, ranks, state.decided, out=state.key[:n])
+    torch.mul(mask, -1, out=state.sel[:n])
+    if n < ind.n_rows:
+        state.key[n:] = -1.0
+        state.sel[n:] = 0
+    rank_pass, spread_pass = state.passes
     cap = n if max_rounds is None else int(max_rounds)
     if mask is graph.mask:
         left = graph.n > 0
     else:
         with span("distgcn.sync"):      # the host waits for the device
             left = bool(mask.any())
-    r = 0
-    while r < cap and left:
-        rank_pass()
-        spread_pass()
-        r += 1
-        with span("distgcn.sync"):
-            left = n_left.item() > 0
-    sel = sel[:n]
-    util = torch.where(sel == 1, wts, torch.zeros_like(wts)).sum()
-    return sel, util, torch.tensor(r, dtype=torch.int32, device=wts.device)
+    first = LGS_FIRST if state.rounds is None else state.rounds + 1
+    r, prev = 0, 0
+    batches = lgs_batches(first, cap) if left else ()
+    for k in batches:
+        for _ in range(k):
+            cur = 1 + r % LGS_RING
+            rank_pass(prev, cur)
+            spread_pass(prev, cur)
+            prev, r = cur, r + 1
+        _COUNTERS.rounds_enqueued += k
+        _COUNTERS.reads += 1
+        with span("distgcn.sync"):      # one read of the batch's counts
+            counts = state.counts.tolist()
+        done = next((j + 1 for j in range(r - k, r)
+                     if counts[1 + j % LGS_RING] == 0), None)
+        if done is not None:
+            r = done
+            break
+    state.rounds = r
+    _COUNTERS.rounds += r
+    sel = state.sel[:n].clone()
+    util = torch.where(sel == 1, wts, 0.0).sum()
+    return sel, util, torch.full((), r, dtype=torch.int32, device=wts.device)
+
+
+# the counters sit on the function, reached by this name so that they stay
+# reachable where a caller replaces `large.bsr_lgs` by a wrapper of it
+_COUNTERS = bsr_lgs
+bsr_lgs.reads = bsr_lgs.rounds_enqueued = bsr_lgs.rounds = 0
 
 
 class LayerParams(list):

@@ -27,14 +27,19 @@ from typing import Optional, Tuple
 import torch
 
 
+def lgs_order(wts: torch.Tensor) -> torch.Tensor:
+    """The nodes by descending weight, ties to the smaller id (a stable
+    argsort of -w along the last axis): `lgs_ranks` numbers them N..1."""
+    return torch.argsort(-wts, dim=-1, stable=True)
+
+
 def lgs_ranks(wts: torch.Tensor) -> torch.Tensor:
     """Total-order priority rank per node: rank[v] > rank[u] iff
     (w_v, -v) > (w_u, -u) lexicographically. [B, N] int32 in [1, N]."""
     n = wts.shape[-1]
-    # stable argsort of -w: descending weight, ties to the smaller id. The
-    # JAX package's second argsort is the inverse permutation, written here
-    # as a scatter: inv[order[i]] = i.
-    order = torch.argsort(-wts, dim=-1, stable=True)
+    # the JAX package's second argsort is the inverse permutation, written
+    # here as a scatter: inv[order[i]] = i
+    order = lgs_order(wts)
     pos = torch.arange(n, device=wts.device).expand_as(order)
     inv = torch.empty_like(order).scatter_(-1, order, pos)
     return (n - inv).to(torch.int32)

@@ -23,8 +23,10 @@ A round of the large LGS (`large.bsr_lgs`) over bitmap blocks is the f32
 kernel twice, each launch ending in the round's element-wise logic for
 its own rows instead of storing the maximum: `lgs_round_kernels` checks
 the round's arrays once and gives the two launches
-(`ops.spmm.lgs_round_passes` calls it; the plain passes are there). Each
-launch adds one to ``bsr_nbr_max_kernel.launches``.
+(`ops.spmm.lgs_round_passes` calls it; the plain passes are there). Both
+take the slots of the previous and of this round's count of nodes left,
+and do nothing but zero this round's where the previous one is 0. Each
+launch adds one to ``bsr_nbr_max_kernel.launches``, gated or not.
 """
 
 from __future__ import annotations
@@ -42,9 +44,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 
 
 _LGS_ARGTYPES = {
-    "rank": [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+    "rank": [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p],
-    "spread": [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+    "spread": [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p]}
 
 
@@ -104,16 +106,18 @@ def lgs_round_kernels(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
                       left: torch.Tensor, n_rows: int, block_size: int):
     """A large LGS round's two launches of the f32 kernel over bitmap
     blocks, checked once and bound to these arrays and to the stream
-    current now: returns (rank_pass, spread_pass), callables of no
-    argument that each launch one pass without synchronising and add one
-    to ``bsr_nbr_max_kernel.launches``.
+    current now: returns (rank_pass, spread_pass), callables of (prev,
+    cur), two different slots of ``left``, that each launch one pass
+    without synchronising and add one to ``bsr_nbr_max_kernel.launches``.
 
-    key, win: f32 [n_rows]; sel: int8 [n_rows]; left: one int32.
-    rank_pass: with m the neighbour-max of key (a rank while undecided,
-    -1 once decided), win[i] = 1.0 where key[i] >= 0 and key[i] > m[i],
-    else 0.0; left = 0. spread_pass: a row with win set gets sel = 1, an
-    undecided row with a neighbour whose win is set gets sel = 0, both get
-    key = -1, and left gains the rows still undecided."""
+    key, win: f32 [n_rows]; sel: int8 [n_rows]; left: int32 [>= 2], the
+    rounds' counts of nodes left. rank_pass: left[cur] = 0, then, unless
+    left[prev] is 0, with m the neighbour-max of key (a rank while
+    undecided, -1 once decided), win[i] = 1.0 where key[i] >= 0 and
+    key[i] > m[i], else 0.0. spread_pass, unless left[prev] is 0: a row
+    with win set gets sel = 1, an undecided row with a neighbour whose win
+    is set gets sel = 0, both get key = -1, and left[cur] gains the rows
+    still undecided."""
     caller = "lgs_round_kernels"
     check_bsr(blk_vals, row_ptr, blk_cols, n_rows, block_size, True, (),
               n_rows, caller)
@@ -124,29 +128,36 @@ def lgs_round_kernels(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
             raise ValueError(f"{caller}: key, win and sel must be "
                              f"contiguous [{n_rows}] on the blocks' device, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if (left.numel() != 1 or left.dtype != torch.int32
-            or left.device != blk_vals.device):
-        raise ValueError(f"{caller}: left must be one int32 on the blocks' "
-                         "device")
+    if (left.dim() != 1 or left.numel() < 2 or left.dtype != torch.int32
+            or left.device != blk_vals.device or not left.is_contiguous()):
+        raise ValueError(f"{caller}: left must be a contiguous int32 "
+                         "vector of two or more slots on the blocks' device")
     device = key.device
     operands = (blk_vals, row_ptr, blk_cols, key, win, sel, left)
     blocks = tuple(t.data_ptr() for t in operands[:3])
     grid = (n_rows // block_size, block_size, _build.stream_of(key))
+    base, slots = left.data_ptr(), left.numel()
 
     def bound(kind, arrays):
         fn = _build.bind("bsr_nbr_max", f"bsr_nbr_max_lgs_{kind}_launch",
                          _LGS_ARGTYPES[kind])
-        args = (*blocks, *(t.data_ptr() for t in arrays), *grid)
+        args = (*blocks, *(t.data_ptr() for t in arrays))
 
-        def launch():
-            with torch.cuda.device(device):
-                fn(*args)
+        def launch(prev: int, cur: int):
+            if not (0 <= prev < slots and 0 <= cur < slots and prev != cur):
+                raise ValueError(f"{caller}: slots {prev}, {cur} of "
+                                 f"{slots} must differ")
+            counts = (base + 4 * prev, base + 4 * cur)
+            if torch.cuda.current_device() == device.index:
+                fn(*args, *counts, *grid)      # no device switch to pay for
+            else:
+                with torch.cuda.device(device):
+                    fn(*args, *counts, *grid)
             bsr_nbr_max_kernel.launches += 1
         launch.operands = operands      # the memory its pointers address
         return launch
 
-    return (bound("rank", (key, win, left)),
-            bound("spread", (win, key, sel, left)))
+    return (bound("rank", (key, win)), bound("spread", (win, key, sel)))
 
 
 bsr_nbr_max_kernel.launches = 0

@@ -480,19 +480,24 @@ def lgs_round_passes(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
     structure blocks, each a neighbour-max with the round's logic after
     it, in place on the round's state: key (f32 [n_rows], a node's rank
     while undecided, -1 once decided), win (f32 [n_rows]), sel (int8
-    [n_rows]: -1 undecided, 1 selected, 0 excluded) and left (one int32).
-    Returns (rank_pass, spread_pass), callables of no argument:
+    [n_rows]: -1 undecided, 1 selected, 0 excluded) and left (int32
+    [>= 2], the rounds' counts of nodes left). Returns (rank_pass,
+    spread_pass), callables of (prev, cur): the slots of left that hold
+    the previous round's count (or any nonzero value before the first
+    round) and this round's. Where left[prev] is 0 the round is gated: it
+    changes nothing but left[cur] = 0, so the rounds after it stay gated.
 
-    - rank_pass: with m the neighbour-max of key, win[i] = 1.0 where
-      key[i] >= 0 and key[i] > m[i], else 0.0 (a decided row without
-      neighbours, m the sentinel, does not win); left = 0;
-    - spread_pass: a row with win set gets sel = 1, an undecided row with
-      a neighbour whose win is set gets sel = 0, both get key = -1; left =
-      the rows still undecided.
+    - rank_pass: left[cur] = 0; unless gated, with m the neighbour-max of
+      key, win[i] = 1.0 where key[i] >= 0 and key[i] > m[i], else 0.0 (a
+      decided row without neighbours, m the sentinel, does not win);
+    - spread_pass, unless gated: a row with win set gets sel = 1, an
+      undecided row with a neighbour whose win is set gets sel = 0, both
+      get key = -1; left[cur] = the rows still undecided.
 
     Bitmap blocks on CUDA tensors: one launch of the neighbour-max kernel
     each (`ops.nbr_max_cuda.lgs_round_kernels`, checked once here); else
-    the plain composition over `nbr_max_rows`."""
+    the plain composition over `nbr_max_rows`, its gate on the device as
+    the kernels' is (no host read)."""
     if key.is_cuda and bitmap:
         from distgcn_tpu_torch.ops.nbr_max_cuda import lgs_round_kernels
         return lgs_round_kernels(blk_vals, row_ptr, blk_cols, key, win, sel,
@@ -502,17 +507,21 @@ def lgs_round_passes(blk_vals: torch.Tensor, row_ptr: torch.Tensor,
         return nbr_max_rows(blk_vals, row_ptr, blk_cols, x, n_rows,
                             block_size, bitmap)
 
-    def rank_pass():
-        win.copy_((key >= 0) & (key > nbr_max(key)))
-        left.zero_()
+    def rank_pass(prev: int, cur: int):
+        go = left[prev] > 0
+        won = (key >= 0) & (key > nbr_max(key))
+        win.copy_(torch.where(go, won.to(win.dtype), win))
+        left[cur] = 0
 
-    def spread_pass():
+    def spread_pass(prev: int, cur: int):
+        go = left[prev] > 0
         hit = nbr_max(win) > 0.0
-        won = win > 0.0
-        out = ~won & (key >= 0) & hit
+        won = (win > 0.0) & go
+        out = ~won & (key >= 0) & hit & go
         sel.masked_fill_(won, 1).masked_fill_(out, 0)
         key.masked_fill_(won | out, -1.0)
-        left.copy_((key >= 0).sum())
+        left[cur] = torch.where(go, (key >= 0).sum().to(left.dtype),
+                                left[cur])
 
     return rank_pass, spread_pass
 

@@ -73,8 +73,9 @@ def span(name: str):
     - ``distgcn.lgs``: the LGS of a slot (B1, or `large.bsr_lgs`), and the
       dense loop's baseline LGS;
     - ``distgcn.sync``: in `large.bsr_lgs`, the host blocked on the
-      device's count of the nodes left, once a round (and once before
-      the first round when the LGS is not given the graph's own mask).
+      device's counts of the nodes left, one read per batch of rounds
+      (and once before the first batch when the LGS is not given the
+      graph's own mask).
     """
     if torch.autograd._profiler_enabled():
         return torch._C._profiler._RecordFunctionFast(name)

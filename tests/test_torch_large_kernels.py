@@ -18,6 +18,7 @@ import torch
 from distgcn_tpu_torch import large
 from distgcn_tpu_torch.ops import cheb_fused, spmm
 from distgcn_tpu_torch.ops.cheb_fused_cuda import fused_cheb_layer_kernel
+from distgcn_tpu_torch.ops.lgs import lgs_ranks
 from distgcn_tpu_torch.ops.nbr_max_cuda import (bsr_nbr_max_i32_kernel,
                                                bsr_nbr_max_kernel)
 from distgcn_tpu_torch.ops.spmm_cuda import bsr_spmm_kernel
@@ -525,9 +526,11 @@ def test_large_solve_on_card_goes_through_the_kernels(cuda, monkeypatch):
     m = g.mask.to(torch.float32)
     gcn_wts = large.large_gcn_forward(
         g, plist, large._features(g, w, m, 1, "dqn"))[:, 0] * m
-    n0 = bsr_nbr_max_kernel.launches
+    n0, e0 = bsr_nbr_max_kernel.launches, large.bsr_lgs.rounds_enqueued
     bsel, _, rounds = large.bsr_lgs(g, gcn_wts, g.mask)
-    assert bsr_nbr_max_kernel.launches - n0 == 2 * int(rounds)
+    enqueued = large.bsr_lgs.rounds_enqueued - e0
+    assert bsr_nbr_max_kernel.launches - n0 == 2 * enqueued
+    assert enqueued >= int(rounds) > 0
     ge = large.build_large_graph(adj, block_size=512, use_bsr=False,
                                  device=cuda)
     assert g.ell_cols is None and ge.ind_bsr is None
@@ -567,11 +570,22 @@ def _lgs_graph(cuda, n, bs, isolated):
     return _LGS_GRAPHS[key]
 
 
+def _batches(first, cap, rounds):
+    """(reads, rounds enqueued) of a `bsr_lgs` solve of `rounds` rounds
+    whose first batch is `first`, by `large.lgs_batches`."""
+    reads = enqueued = 0
+    for k in large.lgs_batches(first, cap) if rounds else ():
+        reads, enqueued = reads + 1, enqueued + k
+        if enqueued >= rounds:
+            break
+    return reads, enqueued
+
+
 def _plain_lgs(g, wts, mask, max_rounds=None):
     """The LGS rounds composed from `bsr_nbr_max_plain` and element-wise
     ops: two neighbour-maxes a round and a host test of the nodes left."""
     ind = g.ind_bsr
-    ranks = large.lgs_ranks(wts).to(torch.float32)
+    ranks = lgs_ranks(wts).to(torch.float32)
     sel = torch.where(mask, -1, 0).to(torch.int8)
     cap = wts.shape[0] if max_rounds is None else max_rounds
 
@@ -597,10 +611,12 @@ def _plain_lgs(g, wts, mask, max_rounds=None):
 @pytest.mark.parametrize("bs", [256, 128])
 @pytest.mark.parametrize("n", [300, 5000, 65536])
 def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
-    """`large.bsr_lgs` (each round B2's rank and spread passes) against the
-    rounds composed from the plain neighbour-max and against `ell_lgs`:
-    sel, util and rounds bit-equal, two launches a round. 300 and 5,000
-    links leave padding rows without neighbours."""
+    """`large.bsr_lgs` (each round B2's rank and spread passes, enqueued
+    in batches with one read each) against the rounds composed from the
+    plain neighbour-max and against `ell_lgs`: sel, util and rounds
+    bit-equal, two launches a round enqueued, and the rounds enqueued past
+    the last (gated) those of the batch rule. 300 and 5,000 links leave
+    padding rows without neighbours."""
     g, ge, w = _lgs_graph(cuda, n, bs, case == "isolated")
     mask, max_rounds = g.mask, None
     if case == "ties":
@@ -611,10 +627,19 @@ def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
         mask = g.mask & (torch.arange(g.n_pad, device=cuda) % 5 != 0)
     elif case == "zero_weights":
         w = torch.zeros_like(w)
+    state = g.lgs_state
+    first = (large.LGS_FIRST if state is None or state.rounds is None
+             else state.rounds + 1)
     n0 = bsr_nbr_max_kernel.launches
+    r0, e0 = large.bsr_lgs.reads, large.bsr_lgs.rounds_enqueued
     sel, util, rounds = large.bsr_lgs(g, w, mask, max_rounds)
     torch.cuda.synchronize()
-    assert bsr_nbr_max_kernel.launches - n0 == 2 * int(rounds) > 0
+    enqueued = large.bsr_lgs.rounds_enqueued - e0
+    assert bsr_nbr_max_kernel.launches - n0 == 2 * enqueued > 0
+    cap = w.shape[0] if max_rounds is None else max_rounds
+    assert ((large.bsr_lgs.reads - r0, enqueued)
+            == _batches(first, cap, int(rounds)))
+    assert int(rounds) <= enqueued <= cap
     psel, putil, prounds = _plain_lgs(g, w, mask, max_rounds)
     assert sel.dtype == torch.int8 and torch.equal(sel, psel)
     assert int(rounds) == prounds
@@ -625,3 +650,53 @@ def test_bsr_lgs_rounds_bit_equal_to_plain_composition(cuda, n, bs, case):
     assert not sel[~mask].any()
     if max_rounds is None:
         assert not (sel[mask] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [256, 128])
+def test_gated_lgs_kernel_pass_writes_nothing(cuda, bs):
+    """B2's rank and spread passes with the previous count 0 leave key,
+    win and sel as they were (bits), and of the counts only the rank
+    pass's zeroed slot differs; open, each pass is bit-equal to its plain
+    version on the same state."""
+    g, _, w = _lgs_graph(cuda, 5000, bs, False)
+    ind = g.ind_bsr
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    key = lgs_ranks(w).to(torch.float32)
+    key[torch.rand(g.n_pad, generator=gen, device=cuda) < 0.3] = -1.0
+    win = (torch.rand(g.n_pad, generator=gen, device=cuda)
+           < 0.2).to(torch.float32)
+    sel = torch.where(key >= 0, -1, 0).to(torch.int8)
+    left = torch.tensor([0, 7, 9, 11], dtype=torch.int32, device=cuda)
+
+    def passes(state, counts, on):
+        return spmm.lgs_round_passes(ind.blk_vals.to(on),
+                                     g.ind_row_ptr.to(on),
+                                     ind.blk_cols.to(on), *state, counts,
+                                     ind.n_rows, ind.block_size, True)
+
+    state = [key, win, sel]
+    kernel = passes(state, left, cuda)
+    was = [t.clone() for t in state]
+    n0 = bsr_nbr_max_kernel.launches
+    kernel[0](0, 1)
+    kernel[1](0, 2)
+    torch.cuda.synchronize()
+    assert bsr_nbr_max_kernel.launches - n0 == 2
+    for got, before in zip(state, was):
+        assert torch.equal(_bits(got) if got.is_floating_point() else got,
+                           _bits(before) if got.is_floating_point()
+                           else before)
+    assert left.tolist() == [0, 0, 9, 11]
+    plain_state = [t.cpu() for t in state]
+    plain_left = left.cpu()
+    plain = passes(plain_state, plain_left, "cpu")
+    for i in range(2):                       # open: left[2] = 9
+        kernel[i](2, 3)
+        plain[i](2, 3)
+        torch.cuda.synchronize()
+        for got, want in zip(state, plain_state):
+            assert torch.equal(got.cpu(), want)
+        assert left.tolist() == plain_left.tolist()
+    assert not all(torch.equal(got, before) for got, before in zip(state,
+                                                                   was))
