@@ -2249,7 +2249,7 @@ def phase_wireless_loops(dev, tmp) -> dict:
     # single episodes at load 0.9: queues, bf16 against f32; B1's calls of
     # the f32 warm-up (both kinds: the GCN's and the baseline's) recorded
     cfg1 = agent.flags.replace(test_datapath=NETS, num_channels=1)
-    _, adj, mask = wireless_sim.pack_networks(cfg1)
+    _, adj, mask, _ = wireless_sim.pack_networks(cfg1)
     adj, mask = torch.from_numpy(adj).to(dev), torch.from_numpy(mask).to(dev)
     q0 = torch.zeros(mask.shape, device=dev)
     util, checked = {}, {}
@@ -2277,7 +2277,7 @@ def phase_wireless_loops(dev, tmp) -> dict:
     # the product graph: one episode, whose warm-up's B1 calls are recorded
     # and their schedules checked
     cfg3 = agent.flags.replace(test_datapath=NETS, num_channels=3)
-    _, gk, mask3 = wireless_sim.pack_networks(cfg3)
+    _, gk, mask3, adj_ch = wireless_sim.pack_networks(cfg3)
     gk, mask3 = torch.from_numpy(gk).to(dev), torch.from_numpy(mask3).to(dev)
     run = make_closed_loop_mc(agent.model, agent.flags, WIRELESS_T, 3,
                               load=0.9)
@@ -2304,9 +2304,7 @@ def phase_wireless_loops(dev, tmp) -> dict:
           f"node", flush=True)
     # the sequential loop on the per-channel graphs (the product graph's
     # diagonal blocks), n_ch launches a slot
-    nfp = mask3.shape[1]
-    adj_ch = torch.stack([gk[:, c * nfp:(c + 1) * nfp, c * nfp:(c + 1) * nfp]
-                          for c in range(3)], dim=1)
+    adj_ch = torch.from_numpy(adj_ch).to(dev)
     run = make_closed_loop_seq(agent.model, agent.flags, WIRELESS_T, 3,
                                load=0.6)
     reset_launch_counts()

@@ -16,11 +16,14 @@ a save after each (load, instance).
 
 Device-loop mode (--device_loop=1): every network is packed into one
 padded batch and each load's whole T=200 episode (arrivals, queues,
-utilities, GCN, LGS) runs on the device (`sim/device_sim`), the product
-graph (`make_closed_loop_mc`) when --num_channels > 1. Traffic is drawn
-from a ``torch.Generator`` seeded with ``int(load * 1000)``, so per-slot
-streams are not the host simulator's numpy streams (same distributions);
-the rows carry the algo name 'DGCN-LGS-DL'.
+utilities, GCN, LGS) runs on the device (`sim/device_sim`); `device_loop`
+picks the loop: the single-channel loop with its greedy baseline, the
+sequential loop on the per-channel graphs for --num_channels > 1 with
+--opt=5 (DGCN-LGS-Seq) or --opt=7 (LGS-Seq), and the product graph
+(`make_closed_loop_mc`) for any other opt. Traffic is drawn from a
+``torch.Generator`` seeded with ``int(load * 1000)``, so per-slot streams
+are not the host simulator's numpy streams (same distributions); the rows
+carry the algo name 'DGCN-LGS-DL', 'DGCN-LGS-Seq-DL' or 'LGS-Seq-DL'.
 
 The CSVs are written and read with the `csv` module in pandas' ``to_csv``
 layout, so a sweep that one package began resumes under the other.
@@ -46,8 +49,7 @@ from distgcn_tpu_torch.data.wireless import (flows_from_connectivity,
                                              multichannel_conflict_simulate,
                                              pad_product_graph,
                                              poisson_graphs_from_dict)
-from distgcn_tpu_torch.sim.device_sim import (make_closed_loop,
-                                              make_closed_loop_mc)
+from distgcn_tpu_torch.sim import device_sim
 from distgcn_tpu_torch.sim.wireless import (ResumableResults, SimParams,
                                             algolist_for_opt, run_instance)
 from distgcn_tpu_torch.utils.config import Config
@@ -55,6 +57,7 @@ from distgcn_tpu_torch.utils.device import resolve_device
 from distgcn_tpu_torch.utils.directory import find_model_folder
 
 DEVICE_LOOP_SLOTS = 200
+SEQ_OPTS = {5: "DGCN-LGS-Seq", 7: "LGS-Seq"}
 
 
 def _extra_args(argv):
@@ -93,6 +96,13 @@ def _channel_graphs(adj_i, n_ch: int, seed: int) -> list:
     with probability 0.8 per channel, drawn from the network's seed."""
     return multichannel_conflict_simulate(adj_i.toarray(), n_ch, 0.8,
                                           np.random.default_rng(seed))
+
+
+def _avg_degree(graphs) -> float:
+    """The mean over the channel graphs of their mean link degree, in
+    float64 (sparse or dense graphs alike)."""
+    return float(np.mean([np.asarray(g.sum(1), dtype=np.float64).mean()
+                          for g in graphs]))
 
 
 def _network_files(cfg: Config, max_networks: int):
@@ -144,11 +154,9 @@ def main(argv=None, agent=None, max_networks: int = 20):
         if n_ch > 1:
             graphs = _channel_graphs(adj_i, n_ch, seed)
             adj_list, adj_gk = multichannel_conflict_graph(graphs)
-            degs = [float(np.asarray(g.sum(1)).mean()) for g in graphs]
-            avg_degree = float(np.mean(degs))
         else:
             adj_list, adj_gk = [adj_i], adj_i
-            avg_degree = float(np.asarray(adj_i.sum(1)).mean())
+        avg_degree = _avg_degree(adj_list)
 
         for load in load_array:
             for inst in inst_range:
@@ -184,54 +192,97 @@ def pack_networks(cfg: Config, max_networks: int = 20):
     """Every network of ``cfg.test_datapath`` in one padded batch.
 
     Returns (nets [(seed, nflows)], adj [B, n_ch*Nfp, n_ch*Nfp] float32,
-    link_mask [B, Nfp] bool) as numpy arrays, the link count padded to
-    `pad_bucket`'s multiple of 128; the product graph
-    (`pad_product_graph`) when ``cfg.num_channels > 1``. Empty when no
-    network has a link.
+    link_mask [B, Nfp] bool, adj_ch [B, n_ch, Nfp, Nfp] float32) as numpy
+    arrays, the link count padded to `pad_bucket`'s multiple of 128: the
+    product graph (`pad_product_graph`) when ``cfg.num_channels > 1``, and
+    the per-channel conflict graphs it is built from (`_channel_graphs`;
+    for one channel ``adj[:, None]``). Empty when no network has a link.
     """
     n_ch = cfg.num_channels
-    nets, gks = [], []
+    nets, chans = [], []
     for fname in _network_files(cfg, max_networks):
         seed, _, adj_i = _load_network(os.path.join(cfg.test_datapath,
                                                     fname))
         nflows = adj_i.shape[0]
         if nflows == 0:
             continue
-        if n_ch > 1:
-            gks.append(multichannel_conflict_graph(
-                _channel_graphs(adj_i, n_ch, seed))[1])
-        else:
-            gks.append(sp.csr_matrix(adj_i))
+        chans.append(_channel_graphs(adj_i, n_ch, seed) if n_ch > 1
+                     else [sp.csr_matrix(adj_i)])
         nets.append((seed, nflows))
     if not nets:
-        return nets, None, None
+        return nets, None, None, None
     b = len(nets)
     nfp = pad_bucket(max(nf for _, nf in nets))
     link_mask = np.zeros((b, nfp), bool)
-    for i, (_, nf) in enumerate(nets):
+    adj_ch = np.zeros((b, n_ch, nfp, nfp), np.float32)
+    for i, ((_, nf), graphs) in enumerate(zip(nets, chans)):
         link_mask[i, :nf] = True
+        for c, g in enumerate(graphs):
+            adj_ch[i, c, :nf, :nf] = g.toarray()
     if n_ch > 1:
-        adj = np.stack([pad_product_graph(gk, nf, n_ch, nfp)
-                        for (_, nf), gk in zip(nets, gks)])
+        adj = np.stack([pad_product_graph(
+            multichannel_conflict_graph(graphs)[1], nf, n_ch, nfp)
+            for (_, nf), graphs in zip(nets, chans)])
     else:
-        adj = np.zeros((b, nfp, nfp), np.float32)
-        for i, ((_, nf), a) in enumerate(zip(nets, gks)):
-            adj[i, :nf, :nf] = a.toarray()
-    return nets, adj, link_mask
+        adj = adj_ch[:, 0]
+    return nets, adj, link_mask, adj_ch
+
+
+def _check_device_loop_opt(opt: int) -> None:
+    if opt == 6:
+        raise ValueError("--opt=6 (CGCN-RS-Seq) has no device loop: its "
+                         "rollout search runs on the host engine only")
+
+
+def device_loop(model, flags: Config, n_ch: int, opt: int, load: float,
+                wt_sel: str = "qr", feature_mode: str = "gdpg",
+                timeslots: int = DEVICE_LOOP_SLOTS):
+    """The on-device episode that ``--device_loop=1`` runs at `load`:
+
+    - one channel: `make_closed_loop` with the greedy baseline
+      ('DGCN-LGS-DL', its utility the ratio to the baseline);
+    - n_ch > 1 with opt 5 (DGCN-LGS-Seq) or 7 (LGS-Seq): the sequential
+      loop `make_closed_loop_seq` on the per-channel graphs
+      ('DGCN-LGS-Seq-DL', 'LGS-Seq-DL'; wt_sel 'qr' only);
+    - any other opt: the product-graph loop `make_closed_loop_mc`
+      ('DGCN-LGS-DL').
+
+    Returns (row name, run, per_channel): ``run(adj, link_mask, queue0,
+    generator)`` takes `pack_networks`'s per-channel graphs ``adj_ch``
+    where `per_channel`, else its ``adj``. Raises ValueError for opt 6
+    (CGCN-RS-Seq), whose rollout search has no device loop.
+    """
+    _check_device_loop_opt(opt)
+    if n_ch == 1:
+        return "DGCN-LGS-DL", device_sim.make_closed_loop(
+            model, flags, timeslots=timeslots, load=load, wt_sel=wt_sel,
+            feature_mode=feature_mode, with_baseline=True), False
+    if opt in SEQ_OPTS:
+        if wt_sel != "qr":
+            raise ValueError(f"{SEQ_OPTS[opt]} takes wt_sel='qr', not "
+                             f"{wt_sel!r}")
+        return f"{SEQ_OPTS[opt]}-DL", device_sim.make_closed_loop_seq(
+            model, flags, timeslots=timeslots, n_ch=n_ch, load=load,
+            feature_mode=feature_mode, use_gcn=opt == 5), True
+    return "DGCN-LGS-DL", device_sim.make_closed_loop_mc(
+        model, flags, timeslots=timeslots, n_ch=n_ch, load=load,
+        wt_sel=wt_sel, feature_mode=feature_mode), False
 
 
 def main_device_loop(cfg, ns, agent=None, max_networks: int = 20):
     """All networks in one padded batch; one on-device episode per load."""
     n_ch = cfg.num_channels
+    _check_device_loop_opt(cfg.opt)
     if agent is None:
         agent = _load_agent(cfg, ns, resolve_device(ns.device))
     dev = agent.device
-    nets, adj, link_mask = pack_networks(cfg, max_networks)
+    nets, adj, link_mask, adj_ch = pack_networks(cfg, max_networks)
     if not nets:
         print("No networks found")
         return None
     b, nfp = link_mask.shape
-    adj = torch.from_numpy(adj).to(dev)
+    degrees = [_avg_degree(adj_ch[i, :, :nf, :nf])
+               for i, (_, nf) in enumerate(nets)]
     mask = torch.from_numpy(link_mask).to(dev)
 
     out_csv = os.path.join(
@@ -240,23 +291,19 @@ def main_device_loop(cfg, ns, agent=None, max_networks: int = 20):
         .format(n_ch, cfg.wt_sel))
     results = ResumableResults(out_csv)
     T = DEVICE_LOOP_SLOTS
+    graphs = None
     for load in _load_array(cfg):
         if all(results.done(seed, seed, load) for seed, _ in nets):
             continue
         t0 = time.time()
-        if n_ch > 1:
-            run = make_closed_loop_mc(agent.model, agent.flags, timeslots=T,
-                                      n_ch=n_ch, load=load,
-                                      wt_sel=cfg.wt_sel,
-                                      feature_mode=agent.feature_mode)
-        else:
-            run = make_closed_loop(agent.model, agent.flags, timeslots=T,
-                                   load=load, wt_sel=cfg.wt_sel,
-                                   feature_mode=agent.feature_mode,
-                                   with_baseline=True)
+        name, run, per_channel = device_loop(
+            agent.model, agent.flags, n_ch, cfg.opt, load, cfg.wt_sel,
+            agent.feature_mode, T)
+        if graphs is None:
+            graphs = torch.from_numpy(adj_ch if per_channel else adj).to(dev)
         q0 = torch.zeros((b, nfp), device=dev)
         gen = torch.Generator(device=dev).manual_seed(int(load * 1000))
-        _, metrics = run(adj, mask, q0, gen)
+        _, metrics = run(graphs, mask, q0, gen)
         metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         rows = []
         for i, (seed, _) in enumerate(nets):
@@ -269,7 +316,7 @@ def main_device_loop(cfg, ns, agent=None, max_networks: int = 20):
             # so resumability is unaffected, but the column is not
             # byte-compatible with the reference format for these rows
             row = {"graph": seed, "seed": seed, "load": load,
-                   "name": "DGCN-LGS-DL", "avg_degree": 0.0,
+                   "name": name, "avg_degree": degrees[i],
                    "avg_queue_len": float(metrics["avg_queue_len"][i]),
                    "med_queue_len": 0.0, "95p_queue_len": 0.0,
                    "5p_queue_len": 0.0,

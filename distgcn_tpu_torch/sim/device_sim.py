@@ -329,7 +329,9 @@ def make_closed_loop_mc(model, flags: Config, timeslots: int, n_ch: int,
     channel per link). One LGS launch a slot. Supports, GCN hoist and bf16
     casts as in `make_closed_loop`; the link mask is tiled over the
     channels, so a padded product node can neither enter a schedule nor
-    block one.
+    block one. Spans as in `make_closed_loop`: ``distgcn.episode`` around
+    a run, ``distgcn.slot`` around each slot, ``distgcn.gcn`` and
+    ``distgcn.lgs`` inside it.
 
     Returns run(adj_gk, link_mask, queue0, generator) ->
       (queueT [B,Nf], {"avg_queue_len": [B], "avg_utility": [B],
@@ -338,8 +340,7 @@ def make_closed_loop_mc(model, flags: Config, timeslots: int, n_ch: int,
     """
     traffic = _traffic(load, rate_lo, rate_hi)
 
-    @torch.no_grad()
-    def run(adj_gk, link_mask, queue0, generator: torch.Generator):
+    def episode(adj_gk, link_mask, queue0, generator):
         dev = queue0.device
         _check_generator(generator, dev)
         b, nf = queue0.shape
@@ -358,27 +359,36 @@ def make_closed_loop_mc(model, flags: Config, timeslots: int, n_ch: int,
                             device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals, rates = traffic(generator, m, n_ch)   # rates [B,Nf,C]
-            queue = queue + arrivals
-            wts3 = slot_utilities(queue[:, :, None], rates, wt_sel,
-                                  generator)
-            # order='F' flatten: node ch*nflows+link
-            wts = wts3.transpose(1, 2).reshape(b, nk) * mask_k
-            gcn_wts = wts if scores is None else scores(supports, wts,
-                                                        mask_k)
-            sel = batched_lgs(adjb, gcn_wts, mask_k)[0]
-            on3 = (sel == 1).reshape(b, n_ch, nf).to(queue.dtype)
-            capacity = (rates.transpose(1, 2) * on3).sum(dim=1)
-            queue = queue - torch.minimum(queue, capacity)
-            stats[t, 0] = (queue * m).sum(dim=-1)
-            stats[t, 1] = selected_utility(sel, wts)
-            stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
+            with span("distgcn.slot"):
+                arrivals, rates = traffic(generator, m, n_ch)  # [B,Nf,C]
+                queue = queue + arrivals
+                wts3 = slot_utilities(queue[:, :, None], rates, wt_sel,
+                                      generator)
+                # order='F' flatten: node ch*nflows+link
+                wts = wts3.transpose(1, 2).reshape(b, nk) * mask_k
+                gcn_wts = wts
+                if scores is not None:
+                    with span("distgcn.gcn"):
+                        gcn_wts = scores(supports, wts, mask_k)
+                with span("distgcn.lgs"):
+                    sel = batched_lgs(adjb, gcn_wts, mask_k)[0]
+                on3 = (sel == 1).reshape(b, n_ch, nf).to(queue.dtype)
+                capacity = (rates.transpose(1, 2) * on3).sum(dim=1)
+                queue = queue - torch.minimum(queue, capacity)
+                stats[t, 0] = (queue * m).sum(dim=-1)
+                stats[t, 1] = selected_utility(sel, wts)
+                stats[t, 2] = (sel == 1).to(torch.float32).sum(dim=-1)
         nreal = torch.clamp(m.sum(dim=-1), min=1.0)
         return queue, {
             "avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
             "avg_utility": stats[:, 1].mean(dim=0),
             "sched_rate": stats[:, 2].mean(dim=0) / nreal,
         }
+
+    @torch.no_grad()
+    def run(adj_gk, link_mask, queue0, generator: torch.Generator):
+        with span("distgcn.episode"):
+            return episode(adj_gk, link_mask, queue0, generator)
 
     return run
 
@@ -484,6 +494,18 @@ def make_online_training_loop(model, flags: Config, optimizer,
     return run
 
 
+def subgraph_supports(adj: torch.Tensor, keep: torch.Tensor, k: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The supports of the subgraph on the nodes `keep` [B, N] bool of the
+    dense adjacency `adj` [B, N, N], in `dtype`: the other nodes' rows and
+    columns are zeroed, so the degrees, the normalisation and the identity
+    cover the subgraph only. A node of the subgraph scores as it would in
+    the graph with the other nodes deleted (and renumbered in order)."""
+    m = keep.to(torch.float32)
+    sub = adj.to(torch.float32) * m[..., :, None] * m[..., None, :]
+    return prep.masked_simple_polynomials_dense(sub, keep, k).to(dtype)
+
+
 def make_closed_loop_seq(model, flags: Config, timeslots: int, n_ch: int,
                          load: float = 0.9, rate_lo: float = 0.0,
                          rate_hi: float = 100.0, feature_mode: str = "gdpg",
@@ -493,13 +515,23 @@ def make_closed_loop_seq(model, flags: Config, timeslots: int, n_ch: int,
     estimates (wireless_dqn_test_mc.py:292-354, wt_sel='qr'):
 
     for each channel ic: utilities = q_est * rate_ic over that channel's own
-    conflict graph; links with zero utility are masked out (the host
-    version deletes them from the subgraph: either way they can neither
+    conflict graph; the links with zero utility are deleted, and the GCN
+    scores the subgraph of the others (`subgraph_supports`, rebuilt every
+    slot and channel: the host engine's ``solve_mwis`` on the deleted
+    subgraph); LGS runs on that subgraph (a masked-out link can neither
     enter nor block); scheduled links' drain estimate min(q_est, rate_ic)
-    carries to the next channel's utilities. One GCN forward (the features
-    follow each channel's mask, so nothing is hoisted) and one LGS launch
-    per channel: n_ch launches a slot. Supports per channel are built once;
-    bf16 episodes cast them and the model once.
+    carries to the next channel's utilities. A link scheduled on several
+    channels departs the sum of their rates. One GCN forward and one LGS
+    launch per channel: n_ch launches a slot. bf16 episodes cast the model
+    once and build the supports in bf16.
+
+    The JAX package's loop scores every channel on the whole channel graph
+    (supports built once over the link mask), which differs from the
+    subgraph's scores once a link's utility is 0 (ROADMAP §C, fault 8).
+
+    Spans as in `make_closed_loop`: ``distgcn.episode``, ``distgcn.slot``,
+    and in a slot ``distgcn.gcn`` (each channel's supports, features and
+    forward) and ``distgcn.lgs`` (each channel's B1 launch).
 
     adj_ch: [B, n_ch, Nf, Nf] per-channel conflict adjacencies (static).
     Returns run(adj_ch, link_mask, queue0, generator) ->
@@ -508,45 +540,53 @@ def make_closed_loop_seq(model, flags: Config, timeslots: int, n_ch: int,
     traffic = _traffic(load, rate_lo, rate_hi)
     dtype = _compute_dtype(flags)
 
-    @torch.no_grad()
-    def run(adj_ch, link_mask, queue0, generator: torch.Generator):
+    def episode(adj_ch, link_mask, queue0, generator):
         dev = queue0.device
         _check_generator(generator, dev)
         b, _ = queue0.shape
         m = link_mask.to(queue0.dtype)
-        adjb_ch = [(adj_ch[:, ic] > 0).contiguous() for ic in range(n_ch)]
-        sup_ch, scores = None, None
+        adj_c = [adj_ch[:, ic].contiguous() for ic in range(n_ch)]
+        adjb_c = [(a > 0) for a in adj_c]
+        scores = None
         if use_gcn:
-            sup_ch = [prep.masked_simple_polynomials_dense(
-                adj_ch[:, ic], link_mask, flags.max_degree).to(dtype)
-                for ic in range(n_ch)]
             scores = _gcn_scorer(cast_model(model, dtype), flags,
                                  feature_mode)
         stats = torch.empty((timeslots, 2, b), dtype=torch.float32,
                             device=dev)
         queue = queue0
         for t in range(timeslots):
-            arrivals, rates = traffic(generator, m, n_ch)
-            queue = queue + arrivals
-            q_est = queue
-            total_cap = torch.zeros_like(queue)
-            util = torch.zeros((b,), dtype=queue.dtype, device=dev)
-            for ic in range(n_ch):
-                rate_ic = rates[:, :, ic]
-                wts_ic = q_est * rate_ic                    # qr utilities
-                mask_ic = link_mask & (wts_ic > 0)
-                gw = wts_ic if scores is None else scores(sup_ch[ic],
-                                                          wts_ic, mask_ic)
-                sel = batched_lgs(adjb_ch[ic], gw, mask_ic)[0]
-                on = (sel == 1).to(queue.dtype)
-                util = util + (wts_ic * on).sum(dim=-1)
-                total_cap = total_cap + rate_ic * on
-                q_est = q_est - torch.minimum(q_est, rate_ic) * on
-            queue = queue - torch.minimum(queue, total_cap)
-            stats[t, 0] = (queue * m).sum(dim=-1)
-            stats[t, 1] = util
+            with span("distgcn.slot"):
+                arrivals, rates = traffic(generator, m, n_ch)
+                queue = queue + arrivals
+                q_est = queue
+                total_cap = torch.zeros_like(queue)
+                util = torch.zeros((b,), dtype=queue.dtype, device=dev)
+                for ic in range(n_ch):
+                    rate_ic = rates[:, :, ic]
+                    wts_ic = q_est * rate_ic                # qr utilities
+                    mask_ic = link_mask & (wts_ic > 0)
+                    gw = wts_ic
+                    if scores is not None:
+                        with span("distgcn.gcn"):
+                            sup = subgraph_supports(adj_c[ic], mask_ic,
+                                                    flags.max_degree, dtype)
+                            gw = scores(sup, wts_ic, mask_ic)
+                    with span("distgcn.lgs"):
+                        sel = batched_lgs(adjb_c[ic], gw, mask_ic)[0]
+                    on = (sel == 1).to(queue.dtype)
+                    util = util + (wts_ic * on).sum(dim=-1)
+                    total_cap = total_cap + rate_ic * on
+                    q_est = q_est - torch.minimum(q_est, rate_ic) * on
+                queue = queue - torch.minimum(queue, total_cap)
+                stats[t, 0] = (queue * m).sum(dim=-1)
+                stats[t, 1] = util
         nreal = torch.clamp(m.sum(dim=-1), min=1.0)
         return queue, {"avg_queue_len": stats[:, 0].mean(dim=0) / nreal,
                        "avg_utility": stats[:, 1].mean(dim=0)}
+
+    @torch.no_grad()
+    def run(adj_ch, link_mask, queue0, generator: torch.Generator):
+        with span("distgcn.episode"):
+            return episode(adj_ch, link_mask, queue0, generator)
 
     return run

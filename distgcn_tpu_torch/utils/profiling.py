@@ -63,15 +63,19 @@ def span(name: str):
     The port's spans, each nested in the one above it on the calling
     thread:
 
-    - ``distgcn.episode``: a call of `sim.device_sim.make_closed_loop`'s
-      ``run`` (supports and scorer set-up, the slots, the metrics);
-    - ``distgcn.slot``: one slot of that loop or of
+    - ``distgcn.episode``: a call of the ``run`` of
+      `sim.device_sim.make_closed_loop`, `make_closed_loop_mc` or
+      `make_closed_loop_seq` (supports and scorer set-up, the slots, the
+      metrics);
+    - ``distgcn.slot``: one slot of those loops or of
       `large.make_large_closed_loop`'s (draws, utilities, scoring, LGS,
       queue update, stats);
     - ``distgcn.gcn``: the GCN's features and forward in a slot (and the
-      dense episode's hoisted forward);
-    - ``distgcn.lgs``: the LGS of a slot (B1, or `large.bsr_lgs`), and the
-      dense loop's baseline LGS;
+      dense episode's hoisted forward; in the sequential loop each
+      channel's subgraph supports too);
+    - ``distgcn.lgs``: the LGS of a slot (B1, or `large.bsr_lgs`; one per
+      channel in the sequential loop), and the dense loop's baseline
+      LGS;
     - ``distgcn.sync``: in `large.bsr_lgs`, the host blocked on the
       device's counts of the nodes left, one read per batch of rounds
       (and once before the first batch when the LGS is not given the

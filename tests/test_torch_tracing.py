@@ -1,4 +1,5 @@
-"""The port's program spans (`utils.profiling.span`) in its two slot loops:
+"""The port's program spans (`utils.profiling.span`) in its slot loops
+(dense, large, and the product-graph and sequential multi-channel loops):
 none without a profiler, results bit-equal with one, spans nested as
 documented, and one ``distgcn.sync`` a `large.bsr_lgs` read of its
 rounds' counts."""
@@ -186,3 +187,61 @@ def test_large_slot_spans_nest_and_count_one_sync_a_round(monkeypatch):
         for s in spans:
             if s[0] == "distgcn.sync":
                 assert _inside(s, lgs_span)
+
+
+def _multichannel_episode(loop):
+    """A closure running one tiny 3-channel episode from empty queues: the
+    product-graph loop (dqn features, the GCN every slot) or the
+    sequential loop (DGCN-LGS-Seq)."""
+    from distgcn_tpu_torch.data import wireless
+
+    rng = np.random.default_rng(4)
+    n_ch, nfp = 3, 32
+    ch = np.zeros((3, n_ch, nfp, nfp), np.float32)
+    gk = np.zeros((3, n_ch * nfp, n_ch * nfp), np.float32)
+    mask = np.zeros((3, nfp), bool)
+    for i, n in enumerate((20, 28, 31)):
+        chans = []
+        for c in range(n_ch):
+            a = np.triu((rng.random((n, n)) < 0.15).astype(np.float32), 1)
+            chans.append(sp.csr_matrix(a + a.T))
+            ch[i, c, :n, :n] = (a + a.T)
+        gk[i] = wireless.pad_product_graph(
+            wireless.multichannel_conflict_graph(chans)[1], n, n_ch, nfp)
+        mask[i, :n] = True
+    cfg = Config(feature_size=1, hidden1=8, num_layer=2, diver_num=1,
+                 max_degree=1, predict="mwis", pad_to=nfp)
+    model = make_model_from_config(cfg, "gcn_dqn", device="cpu")
+    if loop == "mc":
+        run = device_sim.make_closed_loop_mc(model, cfg, SLOTS, n_ch,
+                                             load=0.9, feature_mode="dqn")
+        graphs = torch.from_numpy(gk)
+    else:
+        run = device_sim.make_closed_loop_seq(model, cfg, SLOTS, n_ch,
+                                              load=0.6)
+        graphs = torch.from_numpy(ch)
+    return lambda: run(graphs, torch.from_numpy(mask), torch.zeros(mask.shape),
+                       torch.Generator().manual_seed(6))
+
+
+@pytest.mark.parametrize("loop,per_slot", [("mc", 1), ("seq", 3)])
+def test_multichannel_spans_nest_in_each_slot(loop, per_slot):
+    """The product-graph and sequential loops carry the dense loop's spans:
+    one episode, a slot span each slot, and in each slot a GCN and an LGS
+    span a launch (one on the product graph, one a channel in the
+    sequential loop); results bit-equal with the profiler on and off."""
+    want = _bits(_multichannel_episode(loop)())
+    got, spans = _profiled(_multichannel_episode(loop))
+    assert _bits(got) == want
+    names = [s[0] for s in spans]
+    assert names.count("distgcn.episode") == 1
+    episode = spans[names.index("distgcn.episode")]
+    slots = [s for s in spans if s[0] == "distgcn.slot"]
+    assert len(slots) == SLOTS
+    for s in spans:
+        assert _inside(s, episode)
+    for name in ("distgcn.gcn", "distgcn.lgs"):
+        inner = [s for s in spans if s[0] == name]
+        assert len(inner) == SLOTS * per_slot
+        for slot in slots:
+            assert sum(_inside(s, slot) for s in inner) == per_slot

@@ -383,10 +383,19 @@ def test_closed_loop_mc_matches_jax_with_pinned_draws(
     (False, "gdpg"), (True, "gdpg"), (True, "dqn")])
 def test_closed_loop_seq_matches_jax_with_pinned_draws(
         monkeypatch, use_gcn, feature_mode):
+    """The JAX loop scores each channel on its whole channel graph, the
+    port on the subgraph of the positive-utility links (ROADMAP §C, fault
+    8). The two agree while no utility reaches 0, so the GCN cases pin at
+    least 106 arrivals a slot on every link: above the 3 x 35 that the
+    three channels can drain, no queue or drain estimate empties.
+    Zero utilities go against the host engine
+    (`test_closed_loop_seq_matches_the_host_engine_slot_for_slot`)."""
     rng = np.random.default_rng(12)
     n_ch, nfp = 3, 24
     _, ch, mask = _mc_batch(rng, nfp=nfp, n_ch=n_ch)
     arrivals = np.floor(rng.random(mask.shape) * 60).astype(np.float32)
+    if use_gcn:
+        arrivals += 106.0
     _pinned(monkeypatch, arrivals)
     jmodel, params, tmodel, jcfg, cfg = _models(nfp)
     kw = dict(timeslots=25, n_ch=n_ch, load=0.7, rate_lo=35.0, rate_hi=35.0,
@@ -401,6 +410,156 @@ def test_closed_loop_seq_matches_jax_with_pinned_draws(
     for k in ("avg_queue_len", "avg_utility"):
         np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]),
                                    rtol=RTOL, err_msg=k)
+
+
+def test_jax_closed_loop_seq_scores_the_whole_channel_graph(monkeypatch):
+    """ROADMAP §C fault 8: the JAX `make_closed_loop_seq` builds each
+    channel's supports once over the link mask and scores the whole
+    channel graph, where the published algorithm (the host engine's
+    `_sequential`) deletes the zero-utility links and scores the subgraph
+    left. On the pinned draws of the test above without the +106 (1 to 59
+    arrivals a slot against 35 a channel, so a channel's drain estimate
+    empties links and their utility on the next channel is 0), the
+    DGCN-LGS-Seq episodes part: the port's final queues are the subgraph
+    scoring's (the same loop with the whole-graph supports gives
+    JAX's)."""
+    rng = np.random.default_rng(12)
+    n_ch, nfp = 3, 24
+    _, ch, mask = _mc_batch(rng, nfp=nfp, n_ch=n_ch)
+    arrivals = np.floor(rng.random(mask.shape) * 60).astype(np.float32)
+    _pinned(monkeypatch, arrivals)
+    jmodel, params, tmodel, jcfg, cfg = _models(nfp)
+    kw = dict(timeslots=25, n_ch=n_ch, load=0.7, rate_lo=35.0, rate_hi=35.0)
+    jq, _ = jdevice_sim.make_closed_loop_seq(jmodel, jcfg, **kw)(
+        params, jnp.asarray(ch), jnp.asarray(mask), jnp.zeros(mask.shape),
+        jax.random.PRNGKey(0))
+    args = (torch.from_numpy(ch), torch.from_numpy(mask),
+            torch.zeros(mask.shape), torch.Generator())
+    q, _ = device_sim.make_closed_loop_seq(tmodel, cfg, **kw)(*args)
+    real = device_sim.subgraph_supports
+    monkeypatch.setattr(device_sim, "subgraph_supports",
+                        lambda adj, keep, k, dtype: real(
+                            adj, torch.ones_like(keep), k, dtype))
+    whole, _ = device_sim.make_closed_loop_seq(tmodel, cfg, **kw)(*args)
+    np.testing.assert_allclose(whole.numpy(), np.asarray(jq), rtol=RTOL)
+    assert not np.allclose(q.numpy(), np.asarray(jq), rtol=RTOL)
+    print("fault 8: final queue sum, port (subgraph)", float(q.sum()),
+          "JAX (whole graph)", float(np.asarray(jq).sum()))
+
+
+def _slot_traffic(monkeypatch, slots):
+    """The port's device loops draw each slot's (arrivals, rates) from
+    `slots` in order."""
+    it = iter(slots)
+    monkeypatch.setattr(device_sim, "_traffic",
+                        lambda *a: lambda generator, m, n_ch=None: next(it))
+
+
+def _seq_draws(rng, mask, n_ch, t):
+    """T slots of integer arrivals in [0, 40) and rates in [0, 60), a
+    sixth of the rates 0, zero on padding."""
+    m = torch.from_numpy(mask).to(torch.float32)
+    out = []
+    for _ in range(t):
+        arr = np.floor(rng.random(mask.shape) * 40).astype(np.float32)
+        rates = np.floor(rng.random(mask.shape + (n_ch,)) * 60)
+        rates[rng.random(rates.shape) < 1 / 6] = 0
+        out.append((torch.from_numpy(arr) * m,
+                    torch.from_numpy(rates.astype(np.float32))
+                    * m[..., None]))
+    return out
+
+
+@pytest.mark.parametrize("use_gcn,load", [(True, 0.3), (True, 0.9),
+                                          (False, 0.6)])
+def test_closed_loop_seq_matches_the_host_engine_slot_for_slot(
+        monkeypatch, use_gcn, load):
+    """The device loop's DGCN-LGS-Seq (LGS-Seq) against the host engine's
+    `AlgoRunner._sequential`, which deletes each channel's zero-utility
+    links and runs `agent.solve_mwis` on the subgraph left
+    (wireless_dqn_test_mc.py:292-354): the same arrivals and rates, 30
+    slots, one device slot a call from the queues of the last. Each slot
+    schedules the same product nodes, and the queues are the same, with
+    a link's capacity the sum of the rates of the channels it was
+    scheduled on (the device loops' rule; the host engine's run_instance
+    keeps only the last channel's rate, ROADMAP §C fault 9). Zero
+    utilities are frequent: a sixth of the rates are 0, and a channel's
+    drain estimate empties many links for the next."""
+    rng = np.random.default_rng(24 if use_gcn else 25)
+    n_ch, nfp, t = 3, 24, 30
+    _, ch, mask = _mc_batch(rng, nfp=nfp, n_ch=n_ch)
+    _, tag = _agents()
+    slots = _seq_draws(rng, mask, n_ch, t)
+    _slot_traffic(monkeypatch, slots)
+    sels = []
+    lgs = device_sim.batched_lgs
+
+    def recording(adjb, w, m, *a):
+        out = lgs(adjb, w, m, *a)
+        sels.append((out[0] == 1).numpy())
+        return out
+    monkeypatch.setattr(device_sim, "batched_lgs", recording)
+    run = device_sim.make_closed_loop_seq(tag.model, tag.flags, timeslots=1,
+                                          n_ch=n_ch, load=load,
+                                          use_gcn=use_gcn)
+    name = "DGCN-LGS-Seq" if use_gcn else "LGS-Seq"
+    runners = []
+    for i in range(mask.shape[0]):
+        nf = int(mask[i].sum())
+        graphs = [sp.csr_matrix(ch[i, c, :nf, :nf]) for c in range(n_ch)]
+        adj_list, adj_gk = wireless.multichannel_conflict_graph(graphs)
+        runners.append((nf, sim.AlgoRunner(
+            name, adj_gk, sim.SimParams(n_ch=n_ch), tag, adj_list, nf)))
+    queue = torch.zeros(mask.shape)
+    host_q = np.zeros(mask.shape)
+    zero_links = 0
+    for s, (arr, rates) in enumerate(slots):
+        queue, _ = run(torch.from_numpy(ch), torch.from_numpy(mask), queue,
+                       torch.Generator())
+        device_sets = sels[-n_ch:]
+        for i, (nf, runner) in enumerate(runners):
+            q = host_q[i, :nf] + arr[i, :nf].numpy()
+            r = rates[i, :nf].numpy().astype(np.float64)
+            q_mtx = np.tile(q[:, None], (1, n_ch))
+            want = runner._sequential(name, q_mtx, r)
+            got = {c * nf + v for c in range(n_ch)
+                   for v in np.nonzero(device_sets[c][i, :nf])[0].tolist()}
+            assert got == want, (s, i)
+            zero_links += int((q_mtx * r == 0).sum())
+            cap = np.zeros(nf)
+            for node in want:
+                cap[node % nf] += r[node % nf, node // nf]
+            host_q[i, :nf] = q - np.minimum(q, cap)
+        np.testing.assert_array_equal(queue.numpy(), host_q)
+    assert zero_links > 0
+
+
+def test_host_engine_departs_the_last_channels_rate_only(monkeypatch):
+    """ROADMAP §C fault 9, in both packages' host engines: run_instance
+    sets a scheduled link's capacity to the rate of the last channel it
+    was scheduled on (``capacity[links] = rates_flat[sched]``), where the
+    device loops add the rates of all of them. One link, 100 packets, rates
+    40 and 30 on two channels: LGS-Seq schedules it on both (its drain
+    estimate 60 after channel 0); the device loop departs 70, the host
+    engines 30."""
+    arrivals = np.array([[0.0], [100.0]])
+    rates = np.array([[[0, 0]], [[40, 30]]])
+    for mod in (sim, jsim):
+        monkeypatch.setattr(mod, "gen_arrivals", lambda *a: arrivals)
+        monkeypatch.setattr(mod, "gen_link_rates", lambda *a: rates)
+    one = sp.csr_matrix((1, 1))
+    params = dict(timeslots=2, n_ch=2, wt_sel="qr")
+    for mod in (sim, jsim):
+        out = mod.run_instance(one, 1, 0.5, 0, ["LGS-Seq"],
+                               mod.SimParams(**params), adj_list=[one, one])
+        assert out["LGS-Seq"]["avg_queue_len"] == (0 + 70) / 2
+    _slot_traffic(monkeypatch, [(torch.tensor([[100.0]]),
+                                 torch.tensor([[[40.0, 30.0]]]))])
+    run = device_sim.make_closed_loop_seq(None, Config(**BASE), timeslots=1,
+                                          n_ch=2, use_gcn=False)
+    q, _ = run(torch.ones((1, 2, 1, 1)) * 0, torch.ones((1, 1), dtype=bool),
+               torch.zeros((1, 1)), torch.Generator())
+    assert float(q[0, 0]) == 30.0
 
 
 def test_closed_loop_mc_padding_inert_and_one_channel_per_link():

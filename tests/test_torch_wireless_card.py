@@ -172,3 +172,31 @@ def test_device_loop_cli_on_the_card(cuda, tmp_path, n_ch):
     assert all(r["avg_queue_len"] >= 0 and r["avg_utility"] > 0
                for r in res.rows)
     assert len(wireless_sim.main(argv).rows) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,name", [(5, "DGCN-LGS-Seq-DL"),
+                                      (7, "LGS-Seq-DL")])
+def test_device_loop_cli_runs_the_sequential_loop_on_the_card(
+        cuda, tmp_path, opt, name):
+    """--device_loop=1 --num_channels=3 --opt=5 / 7 over four of the repo's
+    networks: `make_closed_loop_seq`, 3 B1 launches a slot (one a
+    channel), one row a network named for the algorithm."""
+    nets = tmp_path / "nets"
+    nets.mkdir()
+    for net in ("0006", "0009", "0015", "0018"):
+        os.symlink(os.path.join(NETS, f"poisson_net_{net}.mat"),
+                   nets / f"poisson_net_{net}.mat")
+    argv = [f"--test_datapath={nets}", "--wt_sel=qr", "--load_min=0.6",
+            "--load_max=0.6", "--load_step=1.0", "--num_channels=3",
+            f"--opt={opt}", "--num_layer=3", "--hidden1=8",
+            "--feature_size=1", "--diver_num=1", "--max_degree=1",
+            "--predict=mwis", f"--output={tmp_path}", "--device_loop=1",
+            f"--model_root={tmp_path / 'nomodel'}"]
+    before = batched_lgs_kernel.launches
+    res = wireless_sim.main(argv)
+    assert batched_lgs_kernel.launches - before == \
+        3 * wireless_sim.DEVICE_LOOP_SLOTS
+    assert len(res.rows) == 4 and {r["name"] for r in res.rows} == {name}
+    assert all(r["avg_queue_len"] >= 0 and r["avg_utility"] > 0
+               and r["avg_degree"] > 0 for r in res.rows)

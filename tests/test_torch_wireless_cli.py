@@ -163,15 +163,78 @@ def test_main_device_loop_rows_and_resume(nets, tmp_path, n_ch):
 
 def test_pack_networks_pads_links_to_the_bucket(nets):
     """Every network in one batch: links padded to 128, the product graph
-    re-blocked per channel for n_ch > 1, padding rows and columns zero."""
+    re-blocked per channel for n_ch > 1, padding rows and columns zero;
+    the per-channel graphs are the product graph's diagonal blocks."""
     for n_ch in (1, 3):
         cfg = Config(test_datapath=str(nets), num_channels=n_ch)
-        found, adj, mask = wireless_sim.pack_networks(cfg)
+        found, adj, mask, adj_ch = wireless_sim.pack_networks(cfg)
         assert len(found) == 2 and mask.shape == (2, 128)
         assert adj.shape == (2, 128 * n_ch, 128 * n_ch)
+        assert adj_ch.shape == (2, n_ch, 128, 128)
+        for c in range(n_ch):
+            np.testing.assert_array_equal(
+                adj_ch[:, c], adj[:, c * 128:(c + 1) * 128,
+                                  c * 128:(c + 1) * 128])
         for i, (_, nf) in enumerate(found):
             assert mask[i].sum() == nf
             blocks = adj[i].reshape(n_ch, 128, n_ch, 128)
             assert not blocks[:, nf:].any() and not blocks[:, :, :, nf:].any()
             assert (blocks[:, :nf, :, :nf] == blocks[:, :nf, :, :nf]
                     .transpose(2, 3, 0, 1)).all()
+
+
+@pytest.mark.parametrize("opt,name", [(5, "DGCN-LGS-Seq-DL"),
+                                      (7, "LGS-Seq-DL")])
+def test_main_device_loop_runs_the_sequential_loop(nets, tmp_path,
+                                                   monkeypatch, opt, name):
+    """--device_loop=1 --num_channels=3 with --opt=5 or --opt=7 runs
+    `make_closed_loop_seq` on the per-channel graphs: 3 LGS launches a
+    slot (one a channel), one row a network named for the algorithm, its
+    avg_degree the host engine's (the channel graphs' mean degree)."""
+    from distgcn_tpu_torch.sim import device_sim
+    calls = []
+    lgs = device_sim.batched_lgs
+
+    def counting(adjb, w, mask, *a):
+        calls.append(tuple(adjb.shape))
+        return lgs(adjb, w, mask, *a)
+    monkeypatch.setattr(device_sim, "batched_lgs", counting)
+    argv = [f"--test_datapath={nets}", "--wt_sel=qr", "--load_min=0.6",
+            "--load_max=0.6", "--load_step=1.0", "--num_channels=3",
+            f"--opt={opt}", *FLAGS, f"--output={tmp_path}",
+            "--device_loop=1", f"--model_root={tmp_path / 'nomodel'}",
+            "--device=cpu"]
+    res = wireless_sim.main(argv)
+    assert calls == [(2, 128, 128)] * (3 * wireless_sim.DEVICE_LOOP_SLOTS)
+    assert len(res.rows) == 2 and {r["name"] for r in res.rows} == {name}
+    cfg = Config(test_datapath=str(nets), num_channels=3)
+    found, _, _, adj_ch = wireless_sim.pack_networks(cfg)
+    for r, (seed, nf), graphs in zip(res.rows, found, adj_ch):
+        assert r["graph"] == seed and r["load"] == 0.6
+        assert r["avg_queue_len"] >= 0 and r["avg_utility"] > 0
+        degs = [np.asarray(g[:nf, :nf].sum(1), np.float64).mean()
+                for g in graphs]
+        assert r["avg_degree"] == float(np.mean(degs)) > 0
+
+
+def test_main_device_loop_routes_by_opt_and_rejects_cgcn_rs_seq(nets):
+    """`device_loop`: the product graph for any other opt, the single
+    channel loop for one channel; --opt=6 (CGCN-RS-Seq) has no device
+    loop and says so before any network is loaded."""
+    _, tag = _agents()
+    for n_ch, opt, name, per_channel in ((3, 0, "DGCN-LGS-DL", False),
+                                        (3, 5, "DGCN-LGS-Seq-DL", True),
+                                        (1, 5, "DGCN-LGS-DL", False),
+                                        (1, 0, "DGCN-LGS-DL", False)):
+        got = wireless_sim.device_loop(tag.model, tag.flags, n_ch, opt, 0.5)
+        assert (got[0], got[2]) == (name, per_channel)
+    for n_ch in (1, 3):
+        with pytest.raises(ValueError, match="CGCN-RS-Seq"):
+            wireless_sim.device_loop(tag.model, tag.flags, n_ch, 6, 0.5)
+    argv = [f"--test_datapath={nets}", "--num_channels=3", "--opt=6",
+            *FLAGS, "--device_loop=1", "--device=cpu",
+            "--output=/nonexistent/never-written"]
+    with pytest.raises(ValueError, match="CGCN-RS-Seq"):
+        wireless_sim.main(argv, agent=tag)
+    with pytest.raises(ValueError, match="wt_sel"):
+        wireless_sim.device_loop(tag.model, tag.flags, 3, 7, 0.5, "q")
